@@ -1,0 +1,219 @@
+"""Chromosome-space <-> entity-tensor-space bridge.
+
+Counterpart of `greyjack_tpu/score_calculation/score_requesters/
+score_requester.py` (reference `oop_score_requester.rs:17-470`). The cotwin
+is compiled once into a flat variable schema (`VariablesManager`),
+per-(group, column) variable-id maps and dense fact tensors, all on the
+calculator's device; building the scoring frames of a population is then
+one strided slice and cast per planning column.
+
+Delta-path shapes: a ctx holds one base candidate per island (leaves with a
+leading island axis I); deltas are {"positions": i32[I, P, K],
+"values": f[I, P, K], "valid": bool[I, P, K]}.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from greyjack_tpu_torch import config
+from greyjack_tpu_torch.variables.planning_variables import _PlanningVariable
+from greyjack_tpu_torch.score_calculation.score_requesters.variables_manager import (  # noqa: E501
+    VariablesManager,
+)
+
+
+def _fact_array(values, device):
+    arr = np.asarray(values)
+    if arr.dtype.kind in "ui":
+        return torch.as_tensor(arr.astype(np.int32), device=device)
+    if arr.dtype.kind == "f":
+        return torch.as_tensor(arr.astype(np.float64), device=device)
+    if arr.dtype.kind == "b":
+        return torch.as_tensor(arr, device=device)
+    return arr  # strings etc. stay host-side
+
+
+class ScoreRequester:
+    def __init__(self, cotwin):
+        self.cotwin = cotwin
+        calc = cotwin.score_calculator
+        self.device = calc.device
+        dev = self.device
+
+        variables = []
+        self.planning_schema = {}
+        var_index = 0
+        for group_name, entities in cotwin.planning_entities.items():
+            schema = {"n": len(entities), "columns": [], "facts": {}}
+            col_kinds = None
+            fact_cols: dict = {}
+            var_id_cols: dict = {}
+            for entity in entities:
+                pairs = entity.to_vec()
+                if col_kinds is None:
+                    col_kinds = [
+                        (name, "planning" if isinstance(v, _PlanningVariable)
+                         else "fact")
+                        for name, v in pairs
+                    ]
+                for attr_name, value in pairs:
+                    if isinstance(value, _PlanningVariable):
+                        value.set_name(f"{group_name}: {var_index}-->{attr_name}")
+                        variables.append(value)
+                        var_id_cols.setdefault(attr_name, []).append(var_index)
+                        var_index += 1
+                    else:
+                        fact_cols.setdefault(attr_name, []).append(value)
+            schema["columns"] = col_kinds or []
+            schema["is_discrete"] = {
+                c: bool(variables[ids[0]].is_discrete)
+                for c, ids in var_id_cols.items()
+            }
+            schema["var_ids_np"] = {
+                c: np.asarray(ids, dtype=np.int32)
+                for c, ids in var_id_cols.items()
+            }
+            schema["var_ids"] = {
+                c: torch.as_tensor(v, device=dev)
+                for c, v in schema["var_ids_np"].items()
+            }
+            # affine index patterns (start + stride*i) become strided slices
+            schema["affine"] = {}
+            for c, ids in var_id_cols.items():
+                arr = np.asarray(ids)
+                if len(arr) == 1:
+                    schema["affine"][c] = (int(arr[0]), 1)
+                elif len(arr) > 1:
+                    stride = int(arr[1] - arr[0])
+                    if stride > 0 and (np.diff(arr) == stride).all():
+                        schema["affine"][c] = (int(arr[0]), stride)
+            schema["facts"] = {c: _fact_array(v, dev)
+                               for c, v in fact_cols.items()}
+            self.planning_schema[group_name] = schema
+
+        self.fact_frames = {}
+        for group_name, facts in cotwin.problem_facts.items():
+            cols: dict = {}
+            for fact in facts:
+                for attr_name, value in fact.to_vec():
+                    cols.setdefault(attr_name, []).append(value)
+            self.fact_frames[group_name] = {c: _fact_array(v, dev)
+                                            for c, v in cols.items()}
+
+        self.variables_manager = VariablesManager(variables, dev)
+        self.score_size = calc.score_size
+        self.score_class = calc.score_class
+
+        # delta schema: flat var id -> (entity row, planning-column index)
+        var_row = np.zeros(len(variables), dtype=np.int32)
+        var_col = np.zeros(len(variables), dtype=np.int32)
+        for schema in self.planning_schema.values():
+            planning_cols = [c for c, kind in schema["columns"]
+                             if kind == "planning"]
+            for ci, col in enumerate(planning_cols):
+                ids = schema["var_ids_np"][col]
+                var_row[ids] = np.arange(len(ids), dtype=np.int32)
+                var_col[ids] = ci
+        self.var_row = torch.as_tensor(var_row, device=dev)
+        self.var_col = torch.as_tensor(var_col, device=dev)
+        self.var_rowcol = torch.as_tensor(
+            np.stack([var_row, var_col], axis=-1), device=dev)
+
+    # --- delta (incremental) path --------------------------------------------
+    @property
+    def supports_delta(self):
+        calc = self.cotwin.score_calculator
+        return bool(getattr(calc, "has_delta_kernels", False))
+
+    def _delta_utils(self):
+        calc = self.cotwin.score_calculator
+        utils = dict(calc.utility_objects)
+        utils["delta_schema"] = {"var_row": self.var_row,
+                                 "var_col": self.var_col,
+                                 "var_rowcol": self.var_rowcol}
+        return utils
+
+    def build_base_ctx(self, base_rows):
+        """One O(N) pass over one base candidate per island,
+        f[I, V] -> model ctx (leaves with a leading island axis)."""
+        calc = self.cotwin.score_calculator
+        frames = self.build_frames(base_rows)
+        return calc.delta_ctx_fn(frames, self.fact_frames, self._delta_utils())
+
+    def request_score_delta_ints(self, ctx, deltas):
+        """Integer delta rows i32[I, P, S] for the local-search accept loop,
+        or None when the model / kernel does not support them for this
+        shape (a host-side static, so callers branch in Python)."""
+        calc = self.cotwin.score_calculator
+        ints_fn = getattr(calc, "delta_score_batch_ints_fn", None)
+        if ints_fn is None or getattr(calc, "delta_ctx_score_fn", None) is None:
+            return None
+        return ints_fn(ctx, deltas, self._delta_utils())
+
+    def ctx_score_row(self, ctx):
+        """f64[I, S] score of each island's base candidate."""
+        calc = self.cotwin.score_calculator
+        return calc.delta_ctx_score_fn(ctx, self._delta_utils())
+
+    @property
+    def supports_rounded_fast_paths(self):
+        calc = self.cotwin.score_calculator
+        return (getattr(calc, "delta_ctx_ints_fn", None) is not None
+                and getattr(calc, "score_int_scales", None) is not None)
+
+    def ctx_int_totals(self, ctx):
+        """i64[I, S] exact integer score totals of each base candidate."""
+        calc = self.cotwin.score_calculator
+        return calc.delta_ctx_ints_fn(ctx, self._delta_utils())
+
+    @property
+    def score_int_scales(self):
+        return torch.as_tensor(self.cotwin.score_calculator.score_int_scales,
+                               dtype=torch.float64, device=self.device)
+
+    def update_ctx(self, ctx, delta):
+        """Apply one accepted delta per island (delta leaves [I, K]; identity
+        for islands whose delta has no valid entries)."""
+        calc = self.cotwin.score_calculator
+        return calc.delta_update_fn(ctx, delta, self._delta_utils())
+
+    # --- frames -------------------------------------------------------------
+    def build_frames(self, population):
+        """population f[..., V] -> {group: {col: typed [..., n_entities]}}.
+        Integer planning columns come out as i32, float columns as clamped
+        floats; fact columns of planning groups are broadcast."""
+        vm = self.variables_manager
+        fixed = vm.fix_all(population)
+        frames = {}
+        for group_name, schema in self.planning_schema.items():
+            cols = {}
+            for col, var_ids in schema["var_ids"].items():
+                n = var_ids.shape[0]
+                if col in schema["affine"]:
+                    start, stride = schema["affine"][col]
+                    vals = fixed[..., start:start + (n - 1) * stride + 1:stride]
+                else:
+                    vals = fixed[..., var_ids.long()]
+                if schema["is_discrete"][col]:
+                    cols[col] = vals.to(config.INT_DTYPE)
+                else:
+                    cols[col] = vals
+            for col, arr in schema["facts"].items():
+                if isinstance(arr, torch.Tensor):
+                    cols[col] = torch.broadcast_to(
+                        arr, population.shape[:-1] + arr.shape)
+                else:
+                    cols[col] = arr
+            frames[group_name] = cols
+        return frames
+
+    # --- scoring ------------------------------------------------------------
+    def request_score_plain(self, population):
+        """f[P, V] -> f64[P, S] (reference `request_score_plain`,
+        `oop_score_requester.rs:336-355`)."""
+        calculator = self.cotwin.score_calculator
+        frames = self.build_frames(population)
+        return calculator.score_batch(frames, self.fact_frames,
+                                      population.shape[0])

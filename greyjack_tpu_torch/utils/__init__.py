@@ -1,0 +1,3 @@
+from greyjack_tpu_torch.utils import math_utils
+
+__all__ = ["math_utils"]
