@@ -18,7 +18,16 @@ Phases, each fatal on failure:
      "int-delta", and the returned score must equal a plain rescore of the
      returned solution, bit for bit;
   5. median kernel time vs plain time at the flagship shape (CUDA events)
-     and the solve's scored moves/s.
+     and the solve's scored moves/s;
+  6. the VRP sweep neighbourhood (plain torch ops, no kernel of its own)
+     on the card vs on the CPU, bit-equal: the stop table and route grids,
+     every candidate family array and the deterministic half of `propose`
+     (winner delta, exact row, tabu info, stats), for 2 islands of the
+     flagship from perturbed greedy bases, 256 targets, window 16;
+  7. `Solver.solve` on the flagship with bench.py's default configuration
+     (TabuSearch sweep, 256 targets, 8 islands, 200 steps): every chunk
+     must run path "sweep", the scored-candidate counter must be > 0 and
+     the returned score must equal a plain rescore, bit for bit.
 
 Prints the kernel table as one JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
@@ -38,6 +47,7 @@ N_CUSTOMERS, N_DEPOTS, K_VEHICLES, SEED = 1000, 8, 40, 37
 NEIGHBOURS, TABU_RATE, CHUNK_STEPS, N_ISLANDS = 4096, 0.2, 10, 8
 MOVE_PROBAS = [0.5, 0.5, 0.0, 0.0, 0.0, 0.0]
 SOLVE_STEPS = 200
+SWEEP_TARGETS, SWEEP_WINDOW = 256, 16
 DEVICE = "cuda"
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
@@ -131,30 +141,195 @@ def flagship_domain():
                              time_windowed=True, device=DEVICE)
 
 
-def solve_flagship(steps, metrics):
+def flagship_agent(steps, sweep=False):
     from greyjack_tpu_torch.agents import TabuSearch
     from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    return TabuSearch(NEIGHBOURS, TABU_RATE, True, None, MOVE_PROBAS,
+                      CHUNK_STEPS, StepsLimit(steps - 1), sweep=sweep,
+                      sweep_targets=SWEEP_TARGETS, sweep_window=SWEEP_WINDOW)
+
+
+def solve_flagship(steps, metrics, sweep=False):
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.solver import Solver, SolverLoggingLevels
 
-    agent = TabuSearch(NEIGHBOURS, TABU_RATE, True, None, MOVE_PROBAS,
-                       CHUNK_STEPS, StepsLimit(steps - 1))
     return Solver.solve(DomainBuilder.from_generator(flagship_domain),
-                        CotwinBuilder(True, True), agent, N_ISLANDS, seed=0,
+                        CotwinBuilder(True, True), flagship_agent(steps, sweep),
+                        N_ISLANDS, seed=0,
                         logging_level=SolverLoggingLevels.Silent,
                         metrics=metrics)
 
 
-def profile(out_dir, n_chunks=3):
+def check_solution(sol, path):
+    """The returned score must be finite and equal a plain rescore of the
+    returned solution, bit for bit. Returns (score, greedy start score)."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+
+    score = [sol[1]["hard_score"], sol[1]["medium_score"],
+             sol[1]["soft_score"]]
+    values = torch.tensor([[v for _, v in sol[0]]], dtype=torch.float32,
+                          device=DEVICE)
+    if values.shape[1] != 2 * N_CUSTOMERS:
+        fail(f"{path} solution has {values.shape[1]} values")
+    rescore_req = ScoreRequester(CotwinBuilder(True, False).build_cotwin(
+        flagship_domain(), False))
+    rescored = rescore_req.request_score_plain(values)[0].tolist()
+    if not all(map(lambda x: x == x and abs(x) < 1e300, score)):
+        fail(f"{path}: non-finite score {score}")
+    if rescored != score:
+        fail(f"{path}: solve score {score} != plain rescore {rescored}")
+    start_score = rescore_req.request_score_plain(
+        rescore_req.variables_manager.initial_values[None])[0].tolist()
+    return score, start_score
+
+
+def perturbed_bases(req, n_isl, seed, n_moves=40):
+    """Greedy-init bases with a few seeded random moves (vehicle changes,
+    customer swaps) applied, a different set per island."""
+    import numpy as np
+    import torch
+
+    vm = req.variables_manager
+    ids = req.planning_schema["planning_stops"]["var_ids_np"]
+    upper = vm.upper_bounds.cpu().numpy()
+    n_rows = len(ids["customer_id"])
+    out = []
+    for i in range(n_isl):
+        rng = np.random.default_rng(seed + i)
+        arr = vm.initial_values.cpu().numpy().copy()
+        for _ in range(n_moves):
+            a, b = rng.integers(n_rows), rng.integers(n_rows)
+            arr[ids["vehicle_id"][a]] = rng.integers(
+                int(upper[ids["vehicle_id"][a]]) + 1)
+            ca, cb = ids["customer_id"][a], ids["customer_id"][b]
+            arr[ca], arr[cb] = arr[cb], arr[ca]
+        out.append(arr)
+    return torch.from_numpy(np.stack(out))
+
+
+def sweep_parity(n_isl=2, seed=11):
+    """Phase 6: the sweep stages on the card vs on the CPU, same inputs,
+    bit-equal (values, shapes and dtypes)."""
+    import numpy as np
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, generate_instance
+    from greyjack_tpu_torch.models.vrp import sweep
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+
+    outs = {}
+    rng = np.random.default_rng(seed)
+    inputs = None
+    for dev in (DEVICE, "cpu"):
+        dom = generate_instance(N_CUSTOMERS, N_DEPOTS, K_VEHICLES, seed=SEED,
+                                time_windowed=True, device=dev)
+        req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(dom,
+                                                                    False))
+        if not req.supports_sweep:
+            fail("the flagship is not sweep-eligible")
+        utils = req._delta_utils()
+        cfg = sweep.SweepConfig(req, SWEEP_TARGETS, SWEEP_WINDOW)
+        if inputs is None:
+            n, t = cfg.n_rows, cfg.targets
+            inputs = (perturbed_bases(req, n_isl, seed),
+                      torch.from_numpy(np.stack(
+                          [rng.permutation(n)[:t] for _ in range(n_isl)]
+                      ).astype(np.int32)),
+                      torch.from_numpy(rng.random((n_isl, t)) < 0.9),
+                      torch.from_numpy(rng.random((n_isl, n)) < 0.2))
+        bases, t_rows, t_valid, row_tabu = (x.to(dev) for x in inputs)
+        ctx = req.build_base_ctx(bases)
+        tables = sweep.build_tables(ctx, cfg, utils)
+        outs[dev] = {
+            "tables": tables,
+            "families": sweep.score_candidates(ctx, t_rows, t_valid,
+                                               row_tabu, cfg, utils, tables),
+            "propose": sweep.propose_from_targets(ctx, t_rows, t_valid,
+                                                  row_tabu, cfg, utils),
+        }
+    torch.cuda.synchronize()
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}[{i}]")
+        else:
+            yield prefix, tree
+
+    got = dict(leaves(outs[DEVICE]))
+    want = dict(leaves(outs["cpu"]))
+    if set(got) != set(want):
+        fail(f"sweep parity: keys differ {set(got) ^ set(want)}")
+    for name, w in want.items():
+        g = got[name].cpu()
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            fail(f"sweep parity: {name} differs on the card "
+                 f"({g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)})")
+    fam = outs["cpu"]["families"]
+    exact = outs["cpu"]["propose"][1]
+    if not fam["c_valid"].any() or (exact[:, 0] == 2 ** 31 - 1).any():
+        fail("sweep parity: inputs exercise no valid candidate")
+    print(f"sweep parity: {n_isl} islands x {SWEEP_TARGETS} targets, window "
+          f"{SWEEP_WINDOW}: {len(want)} arrays (tables, families, winner "
+          f"delta / exact row / tabu info / stats) bit-equal, card vs CPU",
+          flush=True)
+
+
+def sweep_solve(card):
+    """Phase 7: the flagship sweep solve through `Solver.solve`."""
+    import torch
+    from greyjack_tpu_torch.solver import SolverMetrics
+
+    metrics = SolverMetrics()
+    t0 = time.perf_counter()
+    sol = solve_flagship(SOLVE_STEPS, metrics, sweep=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {"sweep"}:
+        fail(f"the sweep solve ran path(s) {paths}, not sweep")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < SOLVE_STEPS or recs[-1]["n_alive"] != 0:
+        fail(f"the sweep solve ran {steps_run} steps")
+    scored = recs[-1]["sweep_scored"]
+    nonconv = recs[-1]["sweep_nonconv"]
+    if scored <= 0:
+        fail("the sweep solve scored no candidate")
+    score, start = check_solution(sol, "sweep")
+    summ = metrics.summary()
+    steady = recs[1:]
+    steady_mps = (sum(r["moves"] for r in steady)
+                  / (sum(r["wall_ms"] for r in steady) / 1e3)) if steady else 0
+    per_step = recs[0]["moves"] // (N_ISLANDS * recs[0]["steps"])
+    print(f"sweep solve: {steps_run} steps x {N_ISLANDS} islands x "
+          f"{SWEEP_TARGETS} targets in {solve_s:.3f} s, path sweep; greedy "
+          f"start {start} -> best {score} (= plain rescore)", flush=True)
+    print(f"sweep solve rate [{card}]: {summ['moves_per_s']:.1f} conservative "
+          f"scored moves/s over all chunks, {steady_mps:.1f} excluding the "
+          f"first chunk ({per_step} moves counted per island-step); exact "
+          f"counter {scored} scored candidates, {nonconv} non-converged "
+          f"({100.0 * nonconv / scored:.3f}%); chunk ms "
+          f"{[r['wall_ms'] for r in recs]}", flush=True)
+
+
+def profile(out_dir, sweep, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
-    warm-up chunk), with a labelled range around each stage of the step."""
+    warm-up chunk) of the int-delta or the sweep path, with a labelled range
+    around the step and each of its stages."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
-    from greyjack_tpu_torch.agents import TabuSearch
-    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
     from greyjack_tpu_torch.models.vrp import CotwinBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.models.vrp import sweep as sw
     from greyjack_tpu_torch.ops import moves
     from greyjack_tpu_torch.parallel import IslandRunner
     from greyjack_tpu_torch.score_calculation.score_requesters import (
@@ -169,19 +344,31 @@ def profile(out_dir, n_chunks=3):
         wrapped.launches = getattr(fn, "launches", 0)
         return wrapped
 
+    path = "sweep" if sweep else "int-delta"
     req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(
         flagship_domain(), False))
-    kernel = TabuSearch(NEIGHBOURS, TABU_RATE, True, None, MOVE_PROBAS,
-                        CHUNK_STEPS, StepsLimit(10 ** 9)).build_kernel(req)
+    kernel = flagship_agent(10 ** 9, sweep).build_kernel(req)
+    if kernel.path != path:
+        fail(f"profile: built path {kernel.path}, not {path}")
     runner = IslandRunner(kernel, N_ISLANDS, CHUNK_STEPS)
-    stages = [(moves, "move_population_delta", "step.sample"),
-              (dk, "_pre", "step.score._pre"),
-              (dk, "_call_kernel", "step.score.kernel"),
-              (dk, "_post", "step.score._post"),
-              (req, "update_ctx", "step.update_ctx"),
-              (kernel, "prestep", "step.tabu_free"),
-              (kernel, "refresh", "chunk.refresh"),
-              (runner, "_migrate", "chunk.migrate")]
+    if sweep:
+        stages = [(sw, "sample_targets", "step.sweep.sample_targets"),
+                  (sw, "build_tables", "step.sweep.build_tables"),
+                  (sw, "_change_sweep", "step.sweep.family_a_change"),
+                  (sw, "_vehicle_sweep", "step.sweep.family_b_vehicle"),
+                  (sw, "_swap_sweep", "step.sweep.family_c_swap"),
+                  (sw, "_select_winner", "step.sweep.lex_select"),
+                  (sw, "_exact_rescore", "step.sweep.exact_rescore")]
+    else:
+        stages = [(moves, "move_population_delta", "step.sample"),
+                  (dk, "_pre", "step.score._pre"),
+                  (dk, "_call_kernel", "step.score.kernel"),
+                  (dk, "_post", "step.score._post")]
+    stages += [(req, "update_ctx", "step.update_ctx"),
+               (kernel, "prestep", "step.tabu_free"),
+               (kernel, "step", "step (whole)"),
+               (kernel, "refresh", "chunk.refresh"),
+               (runner, "_migrate", "chunk.migrate")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for obj, attr, name in stages:
         setattr(obj, attr, labelled(name, getattr(obj, attr)))
@@ -203,25 +390,32 @@ def profile(out_dir, n_chunks=3):
             setattr(obj, attr, fn)
     ka = prof.key_averages()
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_chunks.txt"), "w") as f:
-        f.write(ka.table(sort_by="device_time_total", row_limit=60))
+    with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
+        f.write(ka.table(sort_by="device_time_total", row_limit=80))
     # device busy = kernel and copy time; the labelled ranges also appear
     # on the device timeline, as user annotations spanning their kernels,
     # and are left out (as the profiler's own table totals do)
-    dev_ms = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation) / 1e3
+    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    launches = sum(e.count for e in dev_events)
     steps = n_chunks * CHUNK_STEPS
-    print(f"profile: {steps} steps wall {wall_ms:.3f} ms "
-          f"({wall_ms / steps:.3f} ms/step), device busy {dev_ms:.3f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}% of wall)", flush=True)
+    print(f"profile {path} [{card_line()}]: {steps} steps wall "
+          f"{wall_ms:.3f} ms ({wall_ms / steps:.3f} ms/step), device busy "
+          f"{dev_ms:.3f} ms ({dev_ms / steps:.3f} ms/step, "
+          f"{100 * dev_ms / wall_ms:.1f}% of wall), {launches / steps:.1f} "
+          f"device ops (kernels + copies) per step", flush=True)
     for _, _, name in stages:
         rows = [e for e in ka
                 if e.key == name and e.device_type == DeviceType.CPU]
         if rows:
             e = rows[0]
-            print(f"  {name}: calls {e.count}, host {e.cpu_time_total / 1e3:.3f}"
-                  f" ms, device {e.device_time_total / 1e3:.3f} ms", flush=True)
+            per = n_chunks if name.startswith("chunk.") else steps
+            unit = "chunk" if name.startswith("chunk.") else "step"
+            print(f"  {name}: calls {e.count}, host "
+                  f"{e.cpu_time_total / 1e3 / per:.4f} ms/{unit}, device "
+                  f"{e.device_time_total / 1e3 / per:.4f} ms/{unit}",
+                  flush=True)
 
 
 def main(argv):
@@ -298,21 +492,7 @@ def main(argv):
     steps_run = sum(r["steps"] for r in metrics.records)
     if steps_run < SOLVE_STEPS:
         fail(f"the solve ran {steps_run} steps")
-    score = [sol[1]["hard_score"], sol[1]["medium_score"],
-             sol[1]["soft_score"]]
-    values = torch.tensor([[v for _, v in sol[0]]], dtype=torch.float32,
-                          device=DEVICE)
-    if values.shape[1] != 2 * N_CUSTOMERS:
-        fail(f"solution has {values.shape[1]} values")
-    rescore_req = ScoreRequester(CotwinBuilder(True, False).build_cotwin(
-        flagship_domain(), False))
-    rescored = rescore_req.request_score_plain(values)[0].tolist()
-    if not all(map(lambda x: x == x and abs(x) < 1e300, score)):
-        fail(f"non-finite score {score}")
-    if rescored != score:
-        fail(f"solve score {score} != plain rescore {rescored}")
-    start_score = rescore_req.request_score_plain(
-        rescore_req.variables_manager.initial_values[None])[0].tolist()
+    score, start_score = check_solution(sol, "int-delta")
     summ = metrics.summary()
     steady = metrics.records[1:]
     steady_mps = (sum(r["moves"] for r in steady)
@@ -337,8 +517,14 @@ def main(argv):
           f"torch {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]})",
           flush=True)
 
+    # --- 5. the sweep path ----------------------------------------------------
+    sweep_parity()
+    sweep_solve(card)
+
     if "--profile" in argv:
-        profile(argv[argv.index("--profile") + 1])
+        out_dir = argv[argv.index("--profile") + 1]
+        profile(out_dir, sweep=False)
+        profile(out_dir, sweep=True)
 
     print(json.dumps({"kernels": [{
         "name": "vrp_delta", "route": "cuda", "source": KERNEL_SOURCE,

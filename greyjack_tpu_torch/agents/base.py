@@ -13,6 +13,8 @@ runner injects (`_active`: bool[I], `_free`: the tabu free lists).
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from greyjack_tpu_torch.ops import lexico
@@ -28,8 +30,8 @@ class MetaheuristicKernel:
     `prestep(state) -> extras` runs once per step for all islands before
     `step`. The step reads extras["_active"] (bool[I]) and freezes all its
     own writes for inactive islands. `path` names the scoring path the
-    kernel runs ("int-delta"); `moves_per_step` counts scored candidates per
-    island-step."""
+    kernel runs ("sweep" / "int-delta"); `moves_per_step` counts scored
+    candidates per island-step (a static lower bound for sweep kernels)."""
 
     def __init__(self, builder, init_state, step, refresh=None,
                  prestep=None, path=None, moves_per_step=None):
@@ -62,12 +64,31 @@ def make_rounded_ints_to_row_fn(requester, score_precision):
 
 
 def fast_paths_ok(requester, score_precision):
-    """True when the int-delta fast path is usable at this precision:
+    """True when the int-delta / sweep fast paths are usable at this precision:
     always for unrounded scores; for rounded scores only when the model
     registered its exact integer totals."""
     if score_precision is None:
         return True
     return requester.supports_rounded_fast_paths
+
+
+def announce_fallback(builder, requester, score_precision):
+    """Warn when a requested sweep mode cannot engage, naming the reason
+    (a silent fallback would hide which path ran)."""
+    if not requester.supports_sweep:
+        reason = ("the model registered no eligible sweep module for this "
+                  "instance")
+    elif not fast_paths_ok(requester, score_precision):
+        reason = ("score_precision is set and the model did not register "
+                  "exact integer totals (set_delta_kernels(ctx_ints=...)) "
+                  "for accept-boundary rounding")
+    else:
+        return
+    warnings.warn(
+        f"{builder.metaheuristic_name}: sweep=True requested but the sweep "
+        f"fast path cannot engage — {reason}; falling back to the "
+        "random-move path (orders of magnitude fewer scored moves/s)",
+        RuntimeWarning, stacklevel=3)
 
 
 def make_score_fn(requester, score_precision=None):

@@ -769,7 +769,7 @@ class CotwinBuilder(CotwinBuilderBase):
         if not domain.time_windowed:
             calculator.remove_constraint("late_arrival_penalty")
         if self.use_incremental_score_calculation:
-            from greyjack_tpu_torch.models.vrp import delta_kernel
+            from greyjack_tpu_torch.models.vrp import delta_kernel, sweep
             calculator.set_delta_kernels(build_delta_ctx, update_ctx,
                                          ctx_score=ctx_score_row,
                                          ctx_ints=ctx_int_totals,
@@ -777,5 +777,6 @@ class CotwinBuilder(CotwinBuilderBase):
             calculator.set_delta_batch_kernel(
                 delta_kernel.score_delta_batch,
                 delta_kernel.score_delta_batch_ints)
+            calculator.set_sweep_module(sweep)
         cotwin.add_score_calculator(calculator)
         return cotwin

@@ -92,6 +92,7 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         self.delta_score_batch_ints_fn = None
         self.delta_ctx_ints_fn = None
         self.score_int_scales = None
+        self.sweep_module = None
 
     def set_delta_kernels(self, build_ctx, update_ctx, ctx_score=None,
                           ctx_ints=None, int_scales=None):
@@ -114,6 +115,14 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         delta rows order-equivalent to the f64 rows."""
         self.delta_score_batch_fn = score_delta_batch
         self.delta_score_batch_ints_fn = score_delta_batch_ints
+
+    def set_sweep_module(self, module):
+        """Register a sweep-neighbourhood module (dense value-sweep scoring,
+        see `models/vrp/sweep.py`). The module exposes `eligible(utils)`
+        (static), `SweepConfig(requester, targets, window)` and
+        `propose(generators, ctx, free, tabu_masks, cfg, utils)`;
+        local-search agents use it when present and eligible."""
+        self.sweep_module = module
 
     @property
     def has_delta_kernels(self):

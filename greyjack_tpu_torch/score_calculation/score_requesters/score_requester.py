@@ -127,6 +127,19 @@ class ScoreRequester:
         calc = self.cotwin.score_calculator
         return bool(getattr(calc, "has_delta_kernels", False))
 
+    @property
+    def supports_sweep(self):
+        """True when the model registered a sweep-neighbourhood module and
+        this instance passes its static eligibility gate."""
+        mod = self.sweep_module
+        if mod is None or not self.supports_delta:
+            return False
+        return bool(mod.eligible(self._delta_utils()))
+
+    @property
+    def sweep_module(self):
+        return getattr(self.cotwin.score_calculator, "sweep_module", None)
+
     def _delta_utils(self):
         calc = self.cotwin.score_calculator
         utils = dict(calc.utility_objects)

@@ -52,6 +52,7 @@ class VariablesManager:
         self.upper_bounds = dev(upper, fd)
         self.discrete_mask = dev(discrete)
         self.frozen_mask = dev(frozen)
+        self.frozen_mask_np = frozen
         self.has_initial_mask = dev(has_initial)
         self.initial_values = dev(initial, fd)
 
@@ -63,6 +64,7 @@ class VariablesManager:
                 if not var.frozen:
                     groups[group_name].append(i)
         self.n_semantic_groups = len(groups)
+        self.semantic_group_keys = list(groups.keys())
 
         sizes = np.array([len(ids) for ids in groups.values()], dtype=np.int32)
         lmax = max(1, int(sizes.max()) if len(sizes) else 1)
@@ -71,6 +73,7 @@ class VariablesManager:
             members[g, : len(ids)] = ids
         self.group_sizes_np = sizes if len(sizes) else np.zeros(1, np.int32)
         self.group_sizes = dev(self.group_sizes_np)
+        self.group_members_np = members
         self.group_members = dev(members)
         self.max_group_size = lmax
         # packed per-(group, slot) sampler table [G, lmax, 4]: member id,

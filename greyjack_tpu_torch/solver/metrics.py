@@ -8,7 +8,9 @@ Counterpart of `greyjack_tpu/solver/metrics.py` (`SolverMetrics`):
     metrics.summary()    # aggregate throughput + best-score trajectory
 
 Each record: {"chunk", "steps", "wall_ms", "moves", "moves_per_s",
-"global_best", "improved", "n_alive", "migrations", "kernel_path"}.
+"global_best", "improved", "n_alive", "migrations", "kernel_path"}, plus
+"sweep_scored" / "sweep_nonconv" (cumulative over islands) on the sweep
+path.
 Observers implementing `update_metrics(record)` receive every record as it
 lands. `wall_ms` is measured after the device finished the chunk.
 """

@@ -200,6 +200,14 @@ class Solver:
                     "migrations": int(np.sum(alive)),
                     "kernel_path": kernel.path,
                 }
+                # sweep-health counters: cumulative scored candidates and
+                # lateness-bound (non-converged) candidates
+                islands_state = state["islands"]
+                if "sweep_scored" in islands_state:
+                    record["sweep_scored"] = int(
+                        islands_state["sweep_scored"].sum().item())
+                    record["sweep_nonconv"] = int(
+                        islands_state["sweep_nonconv"].sum().item())
                 metrics.add(record, observers=observers)
 
             _log(logging_level, chunk_id, steps, new_global, improved,

@@ -47,6 +47,37 @@ def with_island_axis(tree):
     return jax.tree.map(lambda x: np.asarray(x)[None], to_np(tree))
 
 
+def tabu_state_to_port(jstate):
+    """A JAX TabuSearch state batched over islands by `jax.vmap` (leaves
+    [I, ...]) as the port's island state: the same keys, shapes and dtypes,
+    the sweep counters (`sweep_scored`, `sweep_nonconv`, `sweep_stall`)
+    included when the JAX kernel runs the sweep path."""
+    tree = to_np(jstate)
+    if "sweep_scored" in tree:
+        for key, dtype in (("sweep_scored", np.int64),
+                           ("sweep_nonconv", np.int64),
+                           ("sweep_stall", np.int32)):
+            assert tree[key].dtype == dtype, (key, tree[key].dtype)
+    return from_numpy_tree(tree)
+
+
+def jax_sweep_targets(key, free, base_over, jcfg):
+    """The target rows and validity JAX's `sweep.propose` draws from `key`
+    for one island (`greyjack_tpu/models/vrp/sweep.py:717-726`)."""
+    import jax.numpy as jnp
+
+    free_list, free_count = free
+    fc = free_count[jcfg.g_cust]
+    lmax = jcfg.cust_group_lmax
+    t = jcfg.targets
+    keys_rnd = jax.random.uniform(key, (lmax,), jnp.float32) \
+        + jnp.where(jnp.arange(lmax) < fc, 0.0, 2.0)
+    order = jnp.argsort(keys_rnd)[:t]
+    t_valid = (jnp.arange(t, dtype=jnp.int32) < fc) & ~base_over
+    t_rows = jcfg.row_of_cust_slot[free_list[jcfg.g_cust][order]]
+    return np.asarray(t_rows), np.asarray(t_valid)
+
+
 def assert_leaf_equal(want, got, name=""):
     want = np.asarray(want)
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

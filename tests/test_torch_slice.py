@@ -56,6 +56,7 @@ def test_port_imports_no_jax():
             "import greyjack_tpu_torch.solver, greyjack_tpu_torch.agents\n"
             "import greyjack_tpu_torch.models.vrp\n"
             "import greyjack_tpu_torch.models.vrp.delta_kernel\n"
+            "import greyjack_tpu_torch.models.vrp.sweep\n"
             "import greyjack_tpu_torch.interop, greyjack_tpu_torch.cuda_build\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'greyjack_tpu' not in sys.modules\n"
@@ -69,11 +70,12 @@ def test_port_imports_no_jax():
 
 def test_unported_options_raise():
     agent = TabuSearch(8, 0.2, True, None, [0.5, 0.5, 0, 0, 0, 0], 2,
-                       StepsLimit(2), sweep=True)
+                       StepsLimit(2))
     db = DomainBuilder.from_generator(
         lambda: generate_instance(10, 1, 2, seed=1))
     with pytest.raises(NotImplementedError):
-        Solver.solve(db, CotwinBuilder(True, True), agent, 1, seed=0,
+        Solver.solve(db, CotwinBuilder(True, True, exact_fp_scores=True),
+                     agent, 1, seed=0,
                      logging_level=SolverLoggingLevels.Silent)
     with pytest.raises(NotImplementedError):
         Solver.solve(db, CotwinBuilder(True, True), agent, 1, seed=0,
