@@ -3,8 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                  # what CI / the chip check runs
-    python3 chip_smoke.py --profile DIR    # also write a torch.profiler
-                                           # breakdown of a short solve
+    python3 chip_smoke.py --profile DIR    # also write torch.profiler
+                                           # breakdowns of short solves
+                                           # (int-delta, sweep, LA-random)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -27,7 +28,19 @@ Phases, each fatal on failure:
   7. `Solver.solve` on the flagship with bench.py's default configuration
      (TabuSearch sweep, 256 targets, 8 islands, 200 steps): every chunk
      must run path "sweep", the scored-candidate counter must be > 0 and
-     the returned score must equal a plain rescore, bit for bit.
+     the returned score must equal a plain rescore, bit for bit;
+  8. LateAcceptance and SimulatedAnnealing on the flagship, in the JAX
+     package's per-metaheuristic configurations (`scripts/bench_mh.py`):
+     the sweep forms (8 islands, 64 targets, 200 steps) must run path
+     "sweep" with scored candidates > 0, the random-move forms (512
+     islands x 1 move, 100 steps) path "delta" with kernel launches > 0
+     (the f64 rows of the delta kernel), and every returned score must
+     equal a plain rescore, bit for bit.
+
+Phase 3 also holds the kernel's f64 score rows (`_post` of its blocks)
+bit-equal to those of the plain blocks and to the per-neighbour
+`score_delta` on the card, and phase 5 also times the kernel at the
+random-move shape (512 islands x 1 move x 3 routes = 1,536 rows).
 
 Prints the kernel table as one JSON line, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
@@ -48,6 +61,9 @@ NEIGHBOURS, TABU_RATE, CHUNK_STEPS, N_ISLANDS = 4096, 0.2, 10, 8
 MOVE_PROBAS = [0.5, 0.5, 0.0, 0.0, 0.0, 0.0]
 SOLVE_STEPS = 200
 SWEEP_TARGETS, SWEEP_WINDOW = 256, 16
+# LateAcceptance / SimulatedAnnealing as `scripts/bench_mh.py` runs them
+LA_SIZE, SA_T0, SA_COOLING = 200, [1000.0, 1000.0, 1.0], 0.9999
+MH_TARGETS, RANDOM_ISLANDS, RANDOM_STEPS = 64, 512, 100
 DEVICE = "cuda"
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
@@ -107,6 +123,7 @@ def neighbourhood(req, islands, n, seed):
 def compare(name, req, ctx, deltas):
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     import torch
+    from greyjack_tpu_torch.models.vrp import cotwin_builder as cb
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
 
     utils = req._delta_utils()
@@ -130,8 +147,22 @@ def compare(name, req, ctx, deltas):
         fail(f"{name}: i32 delta rows differ")
     if ints_k.shape != deltas["positions"].shape[:2] + (3,):
         fail(f"{name}: i32 rows have shape {tuple(ints_k.shape)}")
-    print(f"parity {name}: rows={inputs[1].shape[0]} blocks and i32 rows "
-          f"bit-equal (max_abs_err {err})", flush=True)
+    # the f64 route: score rows from the kernel's blocks, from the plain
+    # blocks, and from the per-neighbour `score_delta` on the card
+    rows_k = dk._post(got, aux, ctx, utils)
+    rows_p = dk._post(want, aux, ctx, utils)
+    rows_s = cb.score_delta(ctx, deltas, utils)
+    if rows_k.dtype != torch.float64 or rows_k.shape != ints_k.shape:
+        fail(f"{name}: f64 rows {rows_k.dtype}{tuple(rows_k.shape)}")
+    if not torch.equal(rows_k, rows_p):
+        fail(f"{name}: f64 rows of the kernel's blocks differ from the "
+             "plain blocks'")
+    if not torch.equal(rows_k, rows_s):
+        e = float((rows_k - rows_s).abs().max().item())
+        fail(f"{name}: f64 rows differ from score_delta's (max |diff| {e})")
+    print(f"parity {name}: rows={inputs[1].shape[0]} blocks, i32 rows and "
+          f"f64 rows bit-equal, f64 rows = score_delta (max_abs_err {err})",
+          flush=True)
     return err, inputs, aux
 
 
@@ -150,13 +181,28 @@ def flagship_agent(steps, sweep=False):
                       sweep_targets=SWEEP_TARGETS, sweep_window=SWEEP_WINDOW)
 
 
-def solve_flagship(steps, metrics, sweep=False):
+def mh_agent(name, sweep, steps):
+    """LateAcceptance ("LA") or SimulatedAnnealing ("SA") as
+    `scripts/bench_mh.py` configures them, stopping after `steps` steps."""
+    from greyjack_tpu_torch.agents import LateAcceptance, SimulatedAnnealing
+    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    kw = dict(sweep=sweep, sweep_targets=MH_TARGETS)
+    if name == "LA":
+        return LateAcceptance(LA_SIZE, TABU_RATE, None, MOVE_PROBAS,
+                              CHUNK_STEPS, StepsLimit(steps - 1), **kw)
+    return SimulatedAnnealing(SA_T0, SA_COOLING, TABU_RATE, None, MOVE_PROBAS,
+                              CHUNK_STEPS, StepsLimit(steps - 1), **kw)
+
+
+def solve_flagship(steps, metrics, sweep=False, agent=None,
+                   n_islands=N_ISLANDS):
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.solver import Solver, SolverLoggingLevels
 
+    agent = agent or flagship_agent(steps, sweep)
     return Solver.solve(DomainBuilder.from_generator(flagship_domain),
-                        CotwinBuilder(True, True), flagship_agent(steps, sweep),
-                        N_ISLANDS, seed=0,
+                        CotwinBuilder(True, True), agent, n_islands, seed=0,
                         logging_level=SolverLoggingLevels.Silent,
                         metrics=metrics)
 
@@ -320,13 +366,64 @@ def sweep_solve(card):
           f"{[r['wall_ms'] for r in recs]}", flush=True)
 
 
-def profile(out_dir, sweep, n_chunks=3):
+def mh_solve(card, name, sweep):
+    """Phase 8: one LateAcceptance / SimulatedAnnealing flagship solve;
+    returns the kernel's launch count in it."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import SolverMetrics
+
+    label = f"{name}-{'sweep' if sweep else 'random'}"
+    path = "sweep" if sweep else "delta"
+    n_isl = N_ISLANDS if sweep else RANDOM_ISLANDS
+    steps = SOLVE_STEPS if sweep else RANDOM_STEPS
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    t0 = time.perf_counter()
+    sol = solve_flagship(steps, metrics, agent=mh_agent(name, sweep, steps),
+                         n_islands=n_isl)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dk._call_kernel.launches
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {path}:
+        fail(f"{label}: the solve ran path(s) {paths}, not {path}")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < steps or recs[-1]["n_alive"] != 0:
+        fail(f"{label}: the solve ran {steps_run} steps")
+    if sweep and recs[-1]["sweep_scored"] <= 0:
+        fail(f"{label}: the sweep solve scored no candidate")
+    if not sweep and launches <= 0:
+        fail(f"{label}: the solve never launched the CUDA delta kernel")
+    score, start = check_solution(sol, label)
+    summ = metrics.summary()
+    steady = recs[1:]
+    steady_mps = (sum(r["moves"] for r in steady)
+                  / (sum(r["wall_ms"] for r in steady) / 1e3)) if steady else 0
+    extra = (f"exact counter {recs[-1]['sweep_scored']} scored candidates, "
+             f"{recs[-1]['sweep_nonconv']} non-converged" if sweep
+             else f"kernel launches {launches}")
+    print(f"{label} solve: {steps_run} steps x {n_isl} islands in "
+          f"{solve_s:.3f} s, path {path}, {extra}; greedy start {start} -> "
+          f"best {score} (= plain rescore)", flush=True)
+    print(f"{label} solve rate [{card}]: {summ['moves_per_s']:.1f} scored "
+          f"moves/s over all chunks, {steady_mps:.1f} excluding the first "
+          f"chunk ({recs[0]['moves'] // (n_isl * recs[0]['steps'])} counted "
+          f"per island-step); chunk ms {[r['wall_ms'] for r in recs]}",
+          flush=True)
+    return launches
+
+
+def profile(out_dir, path, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
-    warm-up chunk) of the int-delta or the sweep path, with a labelled range
+    warm-up chunk) of the int-delta, the sweep or the LateAcceptance
+    random-move ("la-random", 512 islands) path, with a labelled range
     around the step and each of its stages."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
+    from greyjack_tpu_torch.agents import base as agent_base
     from greyjack_tpu_torch.models.vrp import CotwinBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
     from greyjack_tpu_torch.models.vrp import sweep as sw
@@ -344,14 +441,18 @@ def profile(out_dir, sweep, n_chunks=3):
         wrapped.launches = getattr(fn, "launches", 0)
         return wrapped
 
-    path = "sweep" if sweep else "int-delta"
     req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(
         flagship_domain(), False))
-    kernel = flagship_agent(10 ** 9, sweep).build_kernel(req)
-    if kernel.path != path:
-        fail(f"profile: built path {kernel.path}, not {path}")
-    runner = IslandRunner(kernel, N_ISLANDS, CHUNK_STEPS)
-    if sweep:
+    if path == "la-random":
+        kernel = mh_agent("LA", False, 10 ** 9).build_kernel(req)
+        n_isl, want_path = RANDOM_ISLANDS, "delta"
+    else:
+        kernel = flagship_agent(10 ** 9, path == "sweep").build_kernel(req)
+        n_isl, want_path = N_ISLANDS, path
+    if kernel.path != want_path:
+        fail(f"profile: built path {kernel.path}, not {want_path}")
+    runner = IslandRunner(kernel, n_isl, CHUNK_STEPS)
+    if path == "sweep":
         stages = [(sw, "sample_targets", "step.sweep.sample_targets"),
                   (sw, "build_tables", "step.sweep.build_tables"),
                   (sw, "_change_sweep", "step.sweep.family_a_change"),
@@ -364,18 +465,21 @@ def profile(out_dir, sweep, n_chunks=3):
                   (dk, "_pre", "step.score._pre"),
                   (dk, "_call_kernel", "step.score.kernel"),
                   (dk, "_post", "step.score._post")]
-    stages += [(req, "update_ctx", "step.update_ctx"),
-               (kernel, "prestep", "step.tabu_free"),
-               (kernel, "step", "step (whole)"),
+    stages += [(req, "update_ctx", "step.update_ctx")]
+    if kernel.prestep is not None:
+        stages += [(kernel, "prestep", "step.tabu_free")]
+    if not kernel.self_gating:
+        stages += [(agent_base, "mask_state", "step.mask_state")]
+    stages += [(kernel, "step", "step (whole)"),
                (kernel, "refresh", "chunk.refresh"),
                (runner, "_migrate", "chunk.migrate")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for obj, attr, name in stages:
         setattr(obj, attr, labelled(name, getattr(obj, attr)))
     try:
-        gens = island_generators(0, N_ISLANDS, req.device)
+        gens = island_generators(0, n_isl, req.device)
         state = runner.init(gens)
-        alive = torch.ones(N_ISLANDS, dtype=torch.bool, device=req.device)
+        alive = torch.ones(n_isl, dtype=torch.bool, device=req.device)
         state = runner.run_chunk(state, gens, alive, {}, CHUNK_STEPS)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
@@ -400,9 +504,9 @@ def profile(out_dir, sweep, n_chunks=3):
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     launches = sum(e.count for e in dev_events)
     steps = n_chunks * CHUNK_STEPS
-    print(f"profile {path} [{card_line()}]: {steps} steps wall "
-          f"{wall_ms:.3f} ms ({wall_ms / steps:.3f} ms/step), device busy "
-          f"{dev_ms:.3f} ms ({dev_ms / steps:.3f} ms/step, "
+    print(f"profile {path} [{card_line()}]: {n_isl} islands, {steps} steps "
+          f"wall {wall_ms:.3f} ms ({wall_ms / steps:.3f} ms/step), device "
+          f"busy {dev_ms:.3f} ms ({dev_ms / steps:.3f} ms/step, "
           f"{100 * dev_ms / wall_ms:.1f}% of wall), {launches / steps:.1f} "
           f"device ops (kernels + copies) per step", flush=True)
     for _, _, name in stages:
@@ -475,6 +579,11 @@ def main(argv):
     ctx, deltas = neighbourhood(freq, N_ISLANDS, NEIGHBOURS, seed=7)
     e, inputs, aux = compare("flagship", freq, ctx, deltas)
     max_err = max(max_err, e)
+    # the random-move LA / SA shape: one neighbour per island
+    ctx, deltas = neighbourhood(freq, RANDOM_ISLANDS, 1, seed=9)
+    e, r_inputs, r_aux = compare(f"flagship {RANDOM_ISLANDS}x1", freq, ctx,
+                                 deltas)
+    max_err = max(max_err, e)
 
     # --- 3. the main path ---------------------------------------------------
     metrics = SolverMetrics()
@@ -516,15 +625,31 @@ def main(argv):
           f"{k_ms:.4f} ms (runs {[round(t, 4) for t in k_all]}); plain "
           f"torch {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]})",
           flush=True)
+    r_rows = r_inputs[1].shape[0]
+    rk_ms, rk_all = cuda_ms(lambda: dk._call_kernel(
+        r_inputs, utils, r_aux["kd"], RANDOM_ISLANDS))
+    rp_ms, rp_all = cuda_ms(lambda: dk._kernel_reference(
+        *r_inputs, kd=r_aux["kd"], tw=True,
+        rows_per_island=r_rows // RANDOM_ISLANDS))
+    print(f"kernel time, f64 route [{card}] at {r_rows} rows "
+          f"({RANDOM_ISLANDS} islands x 1 move): {rk_ms:.4f} ms (runs "
+          f"{[round(t, 4) for t in rk_all]}); plain torch {rp_ms:.4f} ms "
+          f"(runs {[round(t, 4) for t in rp_all]})", flush=True)
 
     # --- 5. the sweep path ----------------------------------------------------
     sweep_parity()
     sweep_solve(card)
 
+    # --- 6. LateAcceptance and SimulatedAnnealing -----------------------------
+    for name in ("LA", "SA"):
+        mh_solve(card, name, sweep=True)
+    for name in ("LA", "SA"):
+        launches += mh_solve(card, name, sweep=False)
+
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
-        profile(out_dir, sweep=False)
-        profile(out_dir, sweep=True)
+        for path in ("int-delta", "sweep", "la-random"):
+            profile(out_dir, path)
 
     print(json.dumps({"kernels": [{
         "name": "vrp_delta", "route": "cuda", "source": KERNEL_SOURCE,

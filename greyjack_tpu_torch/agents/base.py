@@ -8,7 +8,8 @@ written out). A metaheuristic provides
     step(generators, state, extras)  -> state
 
 with one `torch.Generator` per island. `extras` carries per-step values the
-runner injects (`_active`: bool[I], `_free`: the tabu free lists).
+runner injects (`_active`: bool[I] for self-gating kernels, `_free`: the
+tabu free lists, the SA auto-temperature `inverted_accomplish_rate`: f64[I]).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import warnings
 
 import torch
 
-from greyjack_tpu_torch.ops import lexico
+from greyjack_tpu_torch.ops import lexico, moves, selection
 from greyjack_tpu_torch.utils.math_utils import round_decimal_t
 
 
@@ -28,13 +29,17 @@ class MetaheuristicKernel:
     population — e.g. the delta-scoring ctx — after the runner replaced
     individuals (migration, global-best adoption); called once per chunk.
     `prestep(state) -> extras` runs once per step for all islands before
-    `step`. The step reads extras["_active"] (bool[I]) and freezes all its
-    own writes for inactive islands. `path` names the scoring path the
-    kernel runs ("sweep" / "int-delta"); `moves_per_step` counts scored
-    candidates per island-step (a static lower bound for sweep kernels)."""
+    `step`. `path` names the scoring path the kernel runs ("sweep" /
+    "int-delta" / "delta"); `moves_per_step` counts scored candidates per
+    island-step (a static lower bound for sweep kernels).
+
+    `self_gating`: the step reads extras["_active"] (bool[I]) and freezes
+    all its own writes for inactive islands. Otherwise the runner keeps an
+    inactive island's whole state with `mask_state` after the step."""
 
     def __init__(self, builder, init_state, step, refresh=None,
-                 prestep=None, path=None, moves_per_step=None):
+                 self_gating=False, prestep=None, path=None,
+                 moves_per_step=None):
         self.builder = builder
         self.init_state = init_state
         self.step = step
@@ -45,6 +50,7 @@ class MetaheuristicKernel:
         self.metaheuristic_kind = builder.metaheuristic_kind
         self.population_size = builder.population_size
         self.migration_rate = builder.migration_rate
+        self.self_gating = self_gating
 
 
 def make_rounded_ints_to_row_fn(requester, score_precision):
@@ -105,6 +111,21 @@ def make_score_fn(requester, score_precision=None):
     return requester.request_score_plain
 
 
+def make_delta_score_fn(requester, score_precision=None):
+    """(ctx, deltas [I, P, K]) -> f64[I, P, S] with optional decimal
+    rounding. The delta arithmetic is exact integer arithmetic, so
+    base + delta then round equals a full rescore then round."""
+    if score_precision is not None:
+        precision = list(score_precision)
+
+        def fn(ctx, deltas):
+            return round_decimal_t(requester.request_score_delta(ctx, deltas),
+                                   precision)
+
+        return fn
+    return requester.request_score_delta
+
+
 def base_state(population, scores):
     """Common per-island state fields: population f[I, P, V], scores
     f64[I, P, S]."""
@@ -135,3 +156,160 @@ def update_top(state):
                                      state["top_score"])
     return state
 
+
+def mask_state(new_state, old_state, alive):
+    """Freeze dead islands: keep the old state where `alive` (bool[I]) is
+    False (`agent_base.rs:137-146`: dead agents stop stepping but keep
+    relaying). Every leaf carries the leading island axis."""
+
+    def mask(new, old):
+        if isinstance(new, dict):
+            return {key: mask(new[key], old[key]) for key in new}
+        return torch.where(alive.view(alive.shape + (1,) * (new.dim() - 1)),
+                           new, old)
+
+    return mask(new_state, old_state)
+
+
+def ctx_state_fns(requester, cfg, score_fn):
+    """(init_state, refresh, prestep) of the kernels that carry a delta ctx
+    per island: the initial population, scores, tabu rings and ctx; the
+    per-chunk ctx rebuild after migration; the per-step tabu free lists."""
+    vm = requester.variables_manager
+
+    def init_state(generators):
+        population = torch.stack(
+            [vm.sample_variables(g, 1) for g in generators])      # [I, 1, V]
+        n_isl, _, v = population.shape
+        scores = score_fn(population.reshape(n_isl, v)).reshape(n_isl, 1, -1)
+        state = base_state(population, scores)
+        state["tabu"] = cfg.init_tabu_state(n_isl)
+        state["ctx"] = requester.build_base_ctx(population[:, 0])
+        return state
+
+    def refresh(state):
+        state = dict(state)
+        state["ctx"] = requester.build_base_ctx(state["population"][:, 0])
+        return state
+
+    def prestep(state):
+        return {"_free": cfg.tabu_free(state["tabu"])}
+
+    return init_state, refresh, prestep
+
+
+def apply_winner(requester, state, winner, accept, cand):
+    """Apply each island's winning delta (leaves [I, K]) where `accept`
+    (bool[I]) holds, to the chromosome and the ctx, and store its score
+    row `cand` f64[I, S] there. Returns a new state dict."""
+    winner = {**winner, "valid": winner["valid"] & accept[:, None]}
+    state = dict(state)
+    state["population"] = moves.apply_delta(state["population"][:, 0],
+                                            winner)[:, None]
+    state["ctx"] = requester.update_ctx(state["ctx"], winner)
+    state["scores"] = torch.where(accept[:, None, None], cand[:, None, :],
+                                  state["scores"])
+    return state
+
+
+class RandomMoveStep:
+    """The parts of the LateAcceptance / SimulatedAnnealing random-move
+    steps that do not depend on the accept rule: one move per island,
+    scored as an f64 row against the ctx in state, and the bookkeeping
+    after the write-back. These steps are not self-gating."""
+
+    def __init__(self, requester, cfg, score_precision):
+        self.requester = requester
+        self.cfg = cfg
+        self.delta_score_fn = make_delta_score_fn(requester, score_precision)
+
+    def propose(self, generators, state):
+        """(winner delta leaves [I, K], tabu info, candidate row f64[I, S])."""
+        deltas, info = moves.move_population_delta(
+            generators, state["population"][:, 0], 1,
+            self.requester.variables_manager, self.cfg, state["tabu"])
+        cand = self.delta_score_fn(state["ctx"], deltas)[:, 0]
+        return {key: x[:, 0] for key, x in deltas.items()}, info, cand
+
+    def finish(self, state, info):
+        if self.cfg.use_tabu:
+            state["tabu"] = moves.update_tabu_from_info(
+                state["tabu"], info,
+                torch.zeros_like(state["step_id"], dtype=torch.int64))
+        state = update_top(state)
+        state["step_id"] = state["step_id"] + 1
+        return state
+
+
+class SweepStep:
+    """The parts every sweep kernel's step shares: the sweep winner of each
+    island (`models/vrp/sweep.py` `propose`), its exact score row, and the
+    bookkeeping after the accept rule — the winner's tabu push, the sweep
+    counters, the island best and the step count, each frozen where
+    `_active` is False (the sweep kernels are self-gating)."""
+
+    def __init__(self, agent, requester, cfg, score_precision):
+        self.requester = requester
+        self.cfg = cfg
+        self.mod = requester.sweep_module
+        self.sweep_cfg = self.mod.SweepConfig(requester, agent.sweep_targets,
+                                              agent.sweep_window)
+        self.utils = requester._delta_utils()
+        # accept-boundary rounding (None when unrounded): candidate row =
+        # rounded((ctx_ints + exact) / scales)
+        self.ints_to_row = (make_rounded_ints_to_row_fn(
+            requester, score_precision)
+            if score_precision is not None else None)
+        self.moves_per_step = self.sweep_cfg.conservative_moves_per_step(
+            self.utils, agent.tabu_entity_rate)
+
+    def init_counters(self, state):
+        zeros = torch.zeros(state["step_id"].shape, dtype=torch.int64,
+                            device=state["step_id"].device)
+        state["sweep_scored"] = zeros
+        # candidates whose lateness was a bound, not exact
+        state["sweep_nonconv"] = zeros
+        return state
+
+    def propose(self, generators, state, extras):
+        """dict of `active` bool[I], `ok` (active and a winner exists),
+        the winner `delta` (leaves [I, K]), its `exact` i32[I, S] delta
+        row, the tabu `info` and the `stats` counters."""
+        active = extras.get("_active")
+        if active is None:
+            active = torch.ones(state["step_id"].shape, dtype=torch.bool,
+                                device=state["step_id"].device)
+        free = extras.get("_free")
+        if free is None:
+            free = self.cfg.tabu_free(state["tabu"])
+        delta, exact, info, stats = self.mod.propose(
+            generators, state["ctx"], free, self.cfg.tabu_masks(state["tabu"]),
+            self.sweep_cfg, self.utils)
+        ok = active & (exact[:, 0] != torch.iinfo(exact.dtype).max)
+        return {"active": active, "ok": ok, "delta": delta, "exact": exact,
+                "info": info, "stats": stats}
+
+    def cand_row(self, state, exact):
+        """f64[I, S]: the score row of the base plus the exact delta."""
+        if self.ints_to_row is None:
+            return self.mod.exact_score_row(state["ctx"], exact, self.utils)
+        return self.ints_to_row(self.requester.ctx_int_totals(state["ctx"])
+                                + exact.to(torch.int64))
+
+    def finish(self, state, p):
+        active, info, stats = p["active"], p["info"], p["stats"]
+        if self.cfg.use_tabu:
+            # the reference pushes touched ids during sampling
+            # (`mover.rs:75-96`): push the winner's targets whether or not
+            # accepted, rotating sweep targets out of tabu
+            state["tabu"] = selection.tabu_push(
+                state["tabu"], info["group"], info["positions"],
+                torch.where(active, info["count"], 0))
+        state["sweep_scored"] = state["sweep_scored"] + torch.where(
+            active, stats["n_scored"], 0)
+        state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
+            active, stats["n_nonconv"], 0)
+        state = update_top(state)
+        state["step_id"] = state["step_id"] + active.to(
+            state["step_id"].dtype)
+        return state

@@ -5,12 +5,12 @@ current solution, accept the best neighbour iff it is no worse.
 
 Ported: the sweep branch — every candidate value of T sampled target
 stops is scored from ctx cumulants (`models/vrp/sweep.py`), the winner is
-re-scored exactly and accepted iff no worse — and the int-delta branch —
-neighbours are scored as i32 delta rows against a ctx carried in state
-(the fused delta kernel). Both apply the winner to the chromosome and the
-ctx and materialize the f64 score from the ctx's exact sums. The f64 delta
-branch (ROADMAP Queue 1 item 3) and the plain branch (item 6) raise
-NotImplementedError.
+re-scored exactly and accepted iff no worse — and the delta branch —
+neighbours are scored against a ctx carried in state, as i32 delta rows
+(the fused delta kernel) where the model and shape allow, else as f64
+score rows (`ScoreRequester.request_score_delta`). Each applies the winner
+to the chromosome and the ctx. The plain branch (ROADMAP Queue 1 item 5)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from greyjack_tpu_torch.agents import base
-from greyjack_tpu_torch.ops import lexico, moves, selection
+from greyjack_tpu_torch.ops import lexico, moves
 
 
 class TabuSearch:
@@ -67,22 +67,16 @@ class TabuSearch:
             base.announce_fallback(self, requester, score_precision)
         if not requester.supports_delta:
             raise NotImplementedError(
-                "plain-score TabuSearch is not ported yet (ROADMAP Queue 1 "
-                "item 6)")
-        calc = requester.cotwin.score_calculator
-        has_ints = (precision_ok
-                    and calc.delta_score_batch_ints_fn is not None
-                    and calc.delta_ctx_score_fn is not None)
-        if not has_ints:
-            raise NotImplementedError(
-                "only the int-delta TabuSearch path is ported; the f64 "
-                "delta path waits for `score_delta` (ROADMAP Queue 1 "
-                "item 3)")
+                "plain-score TabuSearch needs the generic move_population "
+                "sampler, not ported yet (ROADMAP Queue 1 item 5)")
+        delta_score_fn = base.make_delta_score_fn(requester, score_precision)
+        # accept-boundary rounding keeps the int path live under
+        # score_precision (None when unrounded: exact delta <= 0 compare)
         ints_to_row = (base.make_rounded_ints_to_row_fn(
             requester, score_precision)
-            if score_precision is not None else None)
-        init_state, refresh, prestep = _ctx_state_fns(requester, cfg,
-                                                      score_fn)
+            if score_precision is not None and precision_ok else None)
+        init_state, refresh, prestep = base.ctx_state_fns(requester, cfg,
+                                                          score_fn)
 
         def step(generators, state, extras):
             # self-gating: for an island with `_active` False every write
@@ -97,25 +91,34 @@ class TabuSearch:
             deltas, info = moves.move_population_delta(
                 generators, base_row, n, vm, cfg, state["tabu"],
                 extras.get("_free"))
-            ints = requester.request_score_delta_ints(state["ctx"], deltas)
-            if ints is None:
-                raise NotImplementedError(
-                    "this move set is outside the fused delta kernel's "
-                    "eligibility and the f64 delta path is not ported yet")
-            state = dict(state)
-            best = lexico.lex_argmin(ints)                     # [I]
-            best_delta = moves.take_one(ints, best)            # [I, S]
-            if ints_to_row is None:
-                accept = lexico.lex_leq(
-                    best_delta, torch.zeros_like(best_delta)) & active
-                cand_row = None
+            # int-delta rows where the model and the kernel allow (a
+            # host-side static): rank / accept on exact i32 deltas and
+            # materialize the f64 score from the ctx sums; else f64 rows
+            ints = None
+            if precision_ok:
+                ints = requester.request_score_delta_ints(state["ctx"],
+                                                          deltas)
+            if ints is not None:
+                best = lexico.lex_argmin(ints)                 # [I]
+                best_delta = moves.take_one(ints, best)        # [I, S]
+                if ints_to_row is None:
+                    cand_row = None
+                    improves = lexico.lex_leq(best_delta,
+                                              torch.zeros_like(best_delta))
+                else:
+                    cand_row = ints_to_row(
+                        requester.ctx_int_totals(state["ctx"])
+                        + best_delta.to(torch.int64))
+                    improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
             else:
-                cand_row = ints_to_row(requester.ctx_int_totals(state["ctx"])
-                                       + best_delta.to(torch.int64))
-                accept = lexico.lex_leq(cand_row,
-                                        state["scores"][:, 0]) & active
+                scores = delta_score_fn(state["ctx"], deltas)  # [I, P, S]
+                best = lexico.lex_argmin(scores)
+                cand_row = moves.take_one(scores, best)
+                improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
+            accept = improves & active
             winner = moves.take_one(deltas, best)
             winner = {**winner, "valid": winner["valid"] & accept[:, None]}
+            state = dict(state)
             state["population"] = moves.apply_delta(base_row, winner)[:, None]
             state["ctx"] = requester.update_ctx(state["ctx"], winner)
             # guarded: a rejected / inactive step keeps the stored score
@@ -132,8 +135,14 @@ class TabuSearch:
                 state["step_id"].dtype)
             return state
 
+        calc = requester.cotwin.score_calculator
+        has_ints = (precision_ok
+                    and calc.delta_score_batch_ints_fn is not None
+                    and calc.delta_ctx_score_fn is not None)
         return base.MetaheuristicKernel(
-            self, init_state, step, refresh, prestep=prestep, path="int-delta", moves_per_step=n)
+            self, init_state, step, refresh, self_gating=True,
+            prestep=prestep, path="int-delta" if has_ints else "delta",
+            moves_per_step=n)
 
     def _build_sweep_kernel(self, requester, cfg, score_fn,
                             score_precision=None):
@@ -144,59 +153,32 @@ class TabuSearch:
         over a larger, value-structured neighbourhood. The winner is a
         narrow delta, so apply / ctx update / tabu are the int-delta
         path's."""
-        vm = requester.variables_manager
-        mod = requester.sweep_module
-        sweep_cfg = mod.SweepConfig(requester, self.sweep_targets,
-                                    self.sweep_window)
-        utils = requester._delta_utils()
-        # accept-boundary rounding (None when unrounded): candidate row =
-        # rounded((ctx_ints + exact) / scales), compared lexicographically
-        # against the rounded incumbent
-        ints_to_row = (base.make_rounded_ints_to_row_fn(
-            requester, score_precision)
-            if score_precision is not None else None)
+        sw = base.SweepStep(self, requester, cfg, score_precision)
         stall_limit = self.sweep_stall_limit
-        ctx_init_state, refresh, prestep = _ctx_state_fns(requester, cfg,
-                                                          score_fn)
+        ctx_init_state, refresh, prestep = base.ctx_state_fns(
+            requester, cfg, score_fn)
 
         def init_state(generators):
-            state = ctx_init_state(generators)
-            zeros = torch.zeros(len(generators), dtype=torch.int64,
-                                device=vm.device)
-            state["sweep_scored"] = zeros
-            # candidates whose lateness was a bound, not exact
-            state["sweep_nonconv"] = zeros
-            state["sweep_stall"] = zeros.to(torch.int32)
+            state = sw.init_counters(ctx_init_state(generators))
+            state["sweep_stall"] = torch.zeros_like(state["step_id"])
             return state
 
         def step(generators, state, extras):
-            # self-gating: for an island with `_active` False every write
-            # below is an exact identity
-            n_isl = state["population"].shape[0]
-            active = extras.get("_active")
-            if active is None:
-                active = torch.ones(n_isl, dtype=torch.bool,
-                                    device=vm.device)
-            free = extras.get("_free")
-            if free is None:
-                free = cfg.tabu_free(state["tabu"])
-            masks = cfg.tabu_masks(state["tabu"])
-            delta, exact, info, stats = mod.propose(
-                generators, state["ctx"], free, masks, sweep_cfg, utils)
-            stub = torch.iinfo(exact.dtype).max
+            p = sw.propose(generators, state, extras)
+            active, exact = p["active"], p["exact"]
             forced = state["sweep_stall"] >= stall_limit
-            if ints_to_row is None:
+            if sw.ints_to_row is None:
                 cand_row = None
                 improves = lexico.lex_leq(exact, torch.zeros_like(exact))
             else:
-                cand_row = ints_to_row(requester.ctx_int_totals(state["ctx"])
-                                       + exact.to(torch.int64))
+                cand_row = sw.cand_row(state, exact)
                 improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
-            accept = (improves | forced) & active & (exact[:, 0] != stub)
-            winner = {**delta, "valid": delta["valid"] & accept[:, None]}
-            base_row = state["population"][:, 0]
+            accept = (improves | forced) & p["ok"]
+            winner = {**p["delta"],
+                      "valid": p["delta"]["valid"] & accept[:, None]}
             state = dict(state)
-            state["population"] = moves.apply_delta(base_row, winner)[:, None]
+            state["population"] = moves.apply_delta(
+                state["population"][:, 0], winner)[:, None]
             state["ctx"] = requester.update_ctx(state["ctx"], winner)
             new_score = (cand_row if cand_row is not None
                          else requester.ctx_score_row(state["ctx"]))
@@ -207,50 +189,8 @@ class TabuSearch:
             state["scores"] = torch.where(accept[:, None, None],
                                           new_score[:, None, :],
                                           state["scores"])
-            if cfg.use_tabu:
-                # the reference pushes touched ids during sampling
-                # (`mover.rs:75-96`): push the winner's targets whether or
-                # not accepted, rotating sweep targets out of tabu
-                state["tabu"] = selection.tabu_push(
-                    state["tabu"], info["group"], info["positions"],
-                    torch.where(active, info["count"], 0))
-            state["sweep_scored"] = state["sweep_scored"] + torch.where(
-                active, stats["n_scored"], 0)
-            state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
-                active, stats["n_nonconv"], 0)
-            state = base.update_top(state)
-            state["step_id"] = state["step_id"] + active.to(
-                state["step_id"].dtype)
-            return state
+            return sw.finish(state, p)
 
         return base.MetaheuristicKernel(
-            self, init_state, step, refresh, prestep=prestep, path="sweep",
-            moves_per_step=sweep_cfg.conservative_moves_per_step(
-                utils, self.tabu_entity_rate))
-
-
-def _ctx_state_fns(requester, cfg, score_fn):
-    """(init_state, refresh, prestep) of the kernels that carry a delta ctx
-    per island: the initial population, scores, tabu rings and ctx; the
-    per-chunk ctx rebuild after migration; the per-step tabu free lists."""
-    vm = requester.variables_manager
-
-    def init_state(generators):
-        population = torch.stack(
-            [vm.sample_variables(g, 1) for g in generators])      # [I, 1, V]
-        n_isl, _, v = population.shape
-        scores = score_fn(population.reshape(n_isl, v)).reshape(n_isl, 1, -1)
-        state = base.base_state(population, scores)
-        state["tabu"] = cfg.init_tabu_state(n_isl)
-        state["ctx"] = requester.build_base_ctx(population[:, 0])
-        return state
-
-    def refresh(state):
-        state = dict(state)
-        state["ctx"] = requester.build_base_ctx(state["population"][:, 0])
-        return state
-
-    def prestep(state):
-        return {"_free": cfg.tabu_free(state["tabu"])}
-
-    return init_state, refresh, prestep
+            self, init_state, step, refresh, self_gating=True,
+            prestep=prestep, path="sweep", moves_per_step=sw.moves_per_step)

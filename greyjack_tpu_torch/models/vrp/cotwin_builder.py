@@ -144,6 +144,7 @@ def late_arrival_penalty(planning, facts, utils):
 
 _PAYLOAD_KEYS = ("r_stop", "r_c", "r_ct", "r_floor", "r_ce")
 _ALL_BUF_KEYS = _PAYLOAD_KEYS + ("r_leg",)
+_SMALL_DELTA_MAX = 4   # widest delta `_delta_parts` sends to the shift-merge
 
 
 def _route_cap(n_stops, k):
@@ -360,20 +361,29 @@ def _delta_common(ctx, delta, utils):
             "new_dups": new_dups}
 
 
+def _drop_neighbour_axis(tree):
+    if isinstance(tree, dict):
+        return {key: _drop_neighbour_axis(x) for key, x in tree.items()}
+    return tree[:, 0]
+
+
 def _delta_parts_sorted(ctx, delta, utils):
-    """Delta analysis by a sorted merge, one delta per island (leaves
-    [I, K]): patch changed customers at their known slots, clear moved-away
-    stops, append moved-in stops, sort each affected route by stop index,
-    and re-walk it. Used by `update_ctx` for the accepted winner.
+    """Delta analysis by a sorted merge: patch changed customers at their
+    known slots, clear moved-away stops, append moved-in stops, sort each
+    affected route by stop index, and re-walk it. Delta leaves are
+    [I, P, K] (P neighbours per island; outputs [I, P, ...]) or [I, K] (one
+    delta per island, as `update_ctx` and the sweep's exact re-score pass
+    it; outputs [I, ...]). The width dispatch `_delta_parts` sends deltas
+    wider than `_SMALL_DELTA_MAX` here.
 
     The sort is stable here, but only sentinel keys (n_stops) can tie, and
     `update_ctx` zeroes every sentinel slot's payload — the same guarantee
     that makes the JAX package's unstable sort safe."""
+    if delta["positions"].dim() == 2:
+        return _drop_neighbour_axis(_delta_parts_sorted(
+            ctx, {key: x[:, None] for key, x in delta.items()}, utils))
     delta = moves.dedupe_delta(delta)
-    c = _delta_common(ctx, {key: x[:, None] for key, x in delta.items()},
-                      utils)
-    c = {key: x[:, 0] for key, x in c.items()}
-    k = utils["k_vehicles"]
+    c = _delta_common(ctx, delta, utils)
     r = utils["route_cap"]
     n = ctx["v"].shape[-1]
     kd = delta["positions"].shape[-1]
@@ -395,19 +405,20 @@ def _delta_parts_sorted(ctx, delta, utils):
     cell = ((torch.arange(a2, device=dev)[:, None]
              == a_of_row[..., None, None])
             & (torch.arange(r, device=dev)
-               == slot_of_row[..., None, None]))            # [I, KD, A2, R]
+               == slot_of_row[..., None, None]))            # [I, P, KD, A2, R]
     for kk in range(kd):
-        clear = cell[:, kk] & veh_changed[:, kk, None, None]
-        patch = cell[:, kk] & rep[:, kk, None, None]
+        clear = cell[..., kk, :, :] & veh_changed[..., kk, None, None]
+        patch = cell[..., kk, :, :] & rep[..., kk, None, None]
         base["r_stop"] = torch.where(clear, n, base["r_stop"])
         for name, col in zip(_PAYLOAD_KEYS[1:], npay):
-            base[name] = torch.where(patch, col[:, kk, None, None],
+            base[name] = torch.where(patch, col[..., kk, None, None],
                                      base[name])
 
-    ins_here = veh_changed[:, None, :] & (new_v[:, None, :] == av[..., None])
-    ins = {"r_stop": torch.where(ins_here, rows[:, None, :], n)}
+    ins_here = (veh_changed[..., None, :]
+                & (new_v[..., None, :] == av[..., None]))   # [I, P, A2, KD]
+    ins = {"r_stop": torch.where(ins_here, rows[..., None, :], n)}
     for name, col in zip(_PAYLOAD_KEYS[1:], npay):
-        ins[name] = col[:, None, :].expand(-1, a2, -1)
+        ins[name] = col[..., None, :].expand(ins_here.shape)
 
     operands = {name: torch.cat([base[name], ins[name]], dim=-1)
                 for name in _PAYLOAD_KEYS}
@@ -420,33 +431,263 @@ def _delta_parts_sorted(ctx, delta, utils):
         [legs, torch.zeros(legs.shape[:-1] + (1,), dtype=legs.dtype,
                            device=dev)], dim=-1)
 
-    is_old = old_v[:, None, :] == av[..., None]              # [I, A2, KD]
-    is_new = new_v[:, None, :] == av[..., None]
-    vc = veh_changed[:, None, :]
-    contrib = (
-        torch.where(vc & is_old, -dem_old[:, None, :], 0)
-        + torch.where(vc & is_new, dem_new[:, None, :], 0)
-        + torch.where(rep[:, None, :] & ~vc & is_old,
-                      (dem_new - dem_old)[:, None, :], 0))
-    base_load = _take(ctx["load"], av_safe)
-    load = base_load + torch.sum(contrib, dim=-1, dtype=_I32)
-
-    cap_a = utils["capacities"][av_safe.long()]
-    m = arep
-    d_dist = torch.sum(torch.where(m, dist - _take(ctx["dist"], av_safe), 0),
-                       dim=-1, dtype=_I64)
-    d_late = torch.sum(torch.where(m, late - _take(ctx["late"], av_safe), 0),
-                       dim=-1, dtype=_I64)
-    d_over = torch.sum(torch.where(
-        m,
-        torch.clamp(load - cap_a, min=0).to(_I64)
-        - torch.clamp(base_load - cap_a, min=0).to(_I64), 0), dim=-1)
-    over_cap = torch.any(m & (length > r), dim=-1)
+    load = _take(ctx["load"], av_safe) + _load_change(
+        old_v, new_v, av, veh_changed, rep, dem_old, dem_new)
+    d_dist, d_late, d_over = _route_deltas(ctx, av_safe, arep, dist, late,
+                                           load, utils)
+    over_cap = torch.any(arep & (length > r), dim=-1)
     return {"rows": rows, "rep": rep, "new_v": new_v, "new_c": new_c,
             "old_c": old_c, "av": av, "arep": arep, "bufs": bufs,
             "dist": dist, "late": late, "load": load, "len": length,
             "d_dist": d_dist, "d_late": d_late, "d_over": d_over,
             "new_dups": c["new_dups"], "over_cap": over_cap}
+
+
+def _load_change(old_v, new_v, av, veh_changed, rep, dem_old, dem_new):
+    """i32[..., A2]: each affected route's load change, from the rep rows'
+    demands (O(K) arithmetic, no demand payload in the merge)."""
+    is_old = old_v[..., None, :] == av[..., None]            # [..., A2, KD]
+    is_new = new_v[..., None, :] == av[..., None]
+    vc = veh_changed[..., None, :]
+    contrib = (
+        torch.where(vc & is_old, -dem_old[..., None, :], 0)
+        + torch.where(vc & is_new, dem_new[..., None, :], 0)
+        + torch.where(rep[..., None, :] & ~vc & is_old,
+                      (dem_new - dem_old)[..., None, :], 0))
+    return torch.sum(contrib, dim=-1, dtype=_I32)
+
+
+def _route_deltas(ctx, av_safe, arep, dist, late, load, utils):
+    """(d_dist, d_late, d_over) i64[...]: the distinct affected routes'
+    distance, lateness and overflow changes against the ctx."""
+    cap_a = utils["capacities"][av_safe.long()]
+    d_dist = torch.sum(torch.where(arep, dist - _take(ctx["dist"], av_safe),
+                                   0), dim=-1, dtype=_I64)
+    d_late = torch.sum(torch.where(arep, late - _take(ctx["late"], av_safe),
+                                   0), dim=-1, dtype=_I64)
+    d_over = torch.sum(torch.where(
+        arep,
+        torch.clamp(load - cap_a, min=0).to(_I64)
+        - torch.clamp(_take(ctx["load"], av_safe) - cap_a, min=0).to(_I64),
+        0), dim=-1)
+    return d_dist, d_late, d_over
+
+
+def _delta_parts_small(ctx, delta, utils):
+    """Narrow-delta analysis (KD <= `_SMALL_DELTA_MAX`) by shift-merge with
+    carried-leg accounting, batched over islands and neighbours: ctx leaves
+    [I, ...], delta leaves [I, P, K], outputs [I, P, ...].
+
+    Removals close gaps and insertions open them, so every surviving slot
+    moves by a shift in [-KD, KD]: the new route buffers are 2*KD+1 masked
+    rolls of the old ones plus a one-hot insert (no sort, no scatter).
+    Every stop carries its outgoing leg through the merge; only the O(KD)
+    pairs next to an edit can change, and one consolidated distance-matrix
+    gather of [3*KD + 2*A2] entries per neighbour corrects them (a clean
+    pair flagged dirty corrects by zero). Lateness is the prefix form
+    post = P + max(w0, cummax(floor - P)), P = cumsum(service)."""
+    delta = moves.dedupe_delta(delta)
+    r = utils["route_cap"]
+    n = ctx["v"].shape[-1]
+    l = utils["n_locations"]
+    dmf = utils["dm_flat_milli"]
+    acc = utils["acc_dtype"]
+    kd = delta["positions"].shape[-1]
+    dev = delta["positions"].device
+    a2 = 2 * kd
+    idxa = torch.arange(a2, device=dev)
+    jgrid = torch.arange(r, dtype=_I32, device=dev)
+
+    c = _delta_common(ctx, delta, utils)
+    rows, rep = c["rows"], c["rep"]
+    old_v, old_c = c["old_v"], c["old_c"]
+    new_v, new_c = c["new_v"], c["new_c"]
+    veh_changed, stay = c["veh_changed"], c["stay"]
+    av, arep, av_safe = c["av"], c["arep"], c["av_safe"]
+    a_of_row, a_of_new = c["a_of_row"], c["a_of_new"]
+    slot_of_row = c["slot_of_row"]
+
+    base = {name: _take(ctx[name], av_safe)
+            for name in _ALL_BUF_KEYS}                       # [I, P, A2, R]
+    # per-row one-hot grids [I, P, KD, A2, R]: the row's own cell
+    row_at = ((idxa[:, None] == a_of_row[..., None, None])
+              & (jgrid == slot_of_row[..., None, None]))
+
+    # patch stay rows' customer payloads in place
+    npay = _payload_from_customers(new_c, utils)
+    pm = row_at & stay[..., None, None]
+    pm_any = torch.any(pm, dim=-3)
+    for name, col in zip(_PAYLOAD_KEYS[1:], npay):
+        pval = torch.sum(torch.where(pm, col[..., None, None], 0), dim=-3,
+                         dtype=_I32)
+        base[name] = torch.where(pm_any, pval, base[name])
+
+    # shifts: removals close gaps, insertions open them
+    cleared = torch.any(row_at & veh_changed[..., None, None], dim=-3)
+    ins_into = (veh_changed[..., None]
+                & (idxa == a_of_new[..., None]))             # [I, P, KD, A2]
+    key_gt_row = rows[..., None, None] < base["r_stop"][..., None, :, :]
+    ins_before = torch.sum(ins_into[..., None] & key_gt_row, dim=-3,
+                           dtype=_I32)
+    cleared_i = cleared.to(_I32)
+    rem_before = torch.cumsum(cleared_i, dim=-1, dtype=_I32) - cleared_i
+    shift = ins_before - rem_before                          # [I, P, A2, R]
+    survives = ~cleared
+
+    # insert positions: survivors with a smaller key + earlier same-route
+    # inserts
+    ins_key = torch.where(veh_changed, rows, n)
+    same_new = (veh_changed[..., :, None] & veh_changed[..., None, :]
+                & (a_of_new[..., :, None] == a_of_new[..., None, :]))
+    ins_rank_ins = torch.sum(
+        same_new & (ins_key[..., None, :] < ins_key[..., :, None]), dim=-1,
+        dtype=_I32)
+    ins_rank_base = torch.sum(
+        ins_into[..., None] & survives[..., None, :, :] & ~key_gt_row,
+        dim=(-2, -1), dtype=_I32)
+    ins_pos = ins_rank_base + ins_rank_ins                   # [I, P, KD]
+
+    # merge: 2*KD+1 masked rolls, then the one-hot insert; a source shifted
+    # past either end (a tail sentinel pushed off, over-cap growth) is
+    # dropped, not wrapped around
+    received = torch.zeros(shift.shape, dtype=_I32, device=dev)
+    merged = {name: torch.zeros_like(base[name]) for name in _ALL_BUF_KEYS}
+    for s in range(-kd, kd + 1):
+        m = survives & (shift == s)
+        keep = (jgrid >= s) if s >= 0 else (jgrid < r + s)
+        received = received + torch.where(
+            keep, torch.roll(m.to(_I32), s, dims=-1), 0)
+        for name in _ALL_BUF_KEYS:
+            merged[name] = merged[name] + torch.where(
+                keep, torch.roll(torch.where(m, base[name], 0), s, dims=-1),
+                0)
+    im = (veh_changed[..., None, None]
+          & (idxa[:, None] == a_of_new[..., None, None])
+          & (jgrid == ins_pos[..., None, None]))            # [I, P, KD, A2, R]
+    im_any = torch.any(im, dim=-3)
+    ins_cols = dict(zip(_PAYLOAD_KEYS[1:], npay))
+    ins_cols["r_stop"] = rows
+    ins_cols["r_leg"] = torch.zeros_like(rows)
+    bufs = {}
+    for name in _ALL_BUF_KEYS:
+        ival = torch.sum(torch.where(im, ins_cols[name][..., None, None], 0),
+                         dim=-3, dtype=_I32)
+        bufs[name] = torch.where(im_any, ival, merged[name])
+    received = torch.where(im_any, 1, received)
+    bufs["r_stop"] = torch.where(received > 0, bufs["r_stop"], n)
+
+    # lengths and loads
+    n_clr = torch.sum(cleared, dim=-1, dtype=_I32)
+    n_ins = torch.sum(ins_into, dim=-2, dtype=_I32)
+    length = _take(ctx["len"], av_safe) - n_clr + n_ins      # [I, P, A2]
+    over_cap = torch.any(arep & (length > r), dim=-1)
+    valid_j = jgrid < length[..., None]
+    has = length > 0
+    dem_old = utils["cust_packed"][old_c.long(), 0]
+    dem_new = utils["cust_packed"][new_c.long(), 0]
+    load = _take(ctx["load"], av_safe) + _load_change(
+        old_v, new_v, av, veh_changed, rep, dem_old, dem_new)
+
+    # distance: carried legs + dirty-pair corrections; three candidate
+    # pairs per rep row (over-flagging a clean pair is harmless)
+    shift_at_row = torch.sum(torch.where(row_at, shift[..., None, :, :], 0),
+                             dim=(-2, -1), dtype=_I32)
+    locus = slot_of_row + shift_at_row
+    er = torch.cat([a_of_row, torch.where(veh_changed, a_of_new, a_of_row),
+                    a_of_new], dim=-1)                       # [I, P, 3KD]
+    el = torch.cat([locus - 1, torch.where(veh_changed, ins_pos - 1, locus),
+                    ins_pos], dim=-1)
+    ev = torch.cat([rep, rep, veh_changed], dim=-1)
+    len_at = torch.sum(torch.where(idxa == er[..., None], length[..., None, :],
+                                   0), dim=-1, dtype=_I32)
+    ev = ev & (el >= 0) & (el <= len_at - 2)
+    ekey = torch.where(ev, er * (r + 1) + el, -1)
+    ii3 = torch.arange(3 * kd, device=dev)
+    edup = torch.any((ekey[..., :, None] == ekey[..., None, :])
+                     & ev[..., :, None] & ev[..., None, :]
+                     & (ii3 < ii3[:, None]), dim=-1)
+    ev = ev & ~edup
+
+    on_route = idxa[:, None] == er[..., None, None]
+    pair_l = on_route & (jgrid == el[..., None, None])       # [I, P, 3KD, A2, R]
+    pair_r = on_route & (jgrid == el[..., None, None] + 1)
+    r_c = bufs["r_c"][..., None, :, :]
+    u = torch.sum(torch.where(pair_l, r_c, 0), dim=(-2, -1), dtype=_I32)
+    v_right = torch.sum(torch.where(pair_r, r_c, 0), dim=(-2, -1), dtype=_I32)
+    carried = torch.sum(torch.where(pair_l, bufs["r_leg"][..., None, :, :],
+                                    0), dim=(-2, -1), dtype=_I32)
+
+    depots = utils["vehicle_depot_ids"][av_safe.long()].to(_I32)
+    first_c = bufs["r_c"][..., 0]
+    last_c = torch.sum(torch.where(jgrid == length[..., None] - 1,
+                                   bufs["r_c"], 0), dim=-1, dtype=_I32)
+    gidx = torch.cat([
+        torch.where(ev, u * l + v_right, 0),
+        torch.where(has, depots * l + first_c, 0),
+        torch.where(has, last_c * l + depots, 0),
+    ], dim=-1)
+    gvals = dmf[gidx.long()]   # the one consolidated distance-matrix gather
+    leg_new = gvals[..., :3 * kd]
+    start_leg = torch.where(has, gvals[..., 3 * kd:3 * kd + a2], 0)
+    end_leg = torch.where(has, gvals[..., 3 * kd + a2:], 0)
+
+    corr = torch.where(ev, leg_new - carried, 0)
+    corr_by_route = torch.sum(
+        torch.where(idxa == er[..., None], corr[..., None].to(acc), 0),
+        dim=-2, dtype=acc)
+    pairv = valid_j[..., :-1] & valid_j[..., 1:]
+    chain = (torch.sum(torch.where(pairv, bufs["r_leg"][..., :-1], 0),
+                       dim=-1, dtype=acc)
+             + corr_by_route)
+    dist = torch.where(has, start_leg.to(acc) + end_leg.to(acc) + chain, 0)
+
+    # exact r_leg for ctx updates: patch dirty pairs, zero out-of-pair slots
+    dirty = pair_l & ev[..., None, None]
+    rl_patch = torch.sum(torch.where(dirty, leg_new[..., None, None], 0),
+                         dim=-3, dtype=_I32)
+    rl_dirty = torch.any(dirty, dim=-3)
+    bufs["r_leg"] = torch.where(
+        torch.nn.functional.pad(pairv, (0, 1), value=False),
+        torch.where(rl_dirty, rl_patch, bufs["r_leg"]), 0)
+
+    if utils["time_windowed"]:
+        late = _late_from_buffers(bufs, valid_j, length, av_safe, utils)
+    else:
+        late = torch.zeros(length.shape, dtype=acc, device=dev)
+
+    d_dist, d_late, d_over = _route_deltas(ctx, av_safe, arep, dist, late,
+                                           load, utils)
+    return {"rows": rows, "rep": rep, "new_v": new_v, "new_c": new_c,
+            "old_c": old_c, "av": av, "arep": arep, "bufs": bufs,
+            "dist": dist, "late": late, "load": load, "len": length,
+            "d_dist": d_dist, "d_late": d_late, "d_over": d_over,
+            "new_dups": c["new_dups"], "over_cap": over_cap}
+
+
+def _delta_parts(ctx, delta, utils):
+    """Width-dispatched delta analysis over [I, P, K] deltas: shift-merge
+    for narrow deltas, sorted merge for wide ones. Both give the same
+    buffers."""
+    if delta["positions"].shape[-1] <= _SMALL_DELTA_MAX:
+        return _delta_parts_small(ctx, delta, utils)
+    return _delta_parts_sorted(ctx, delta, utils)
+
+
+def score_delta(ctx, deltas, utils):
+    """f64[I, P, 3] score rows of every island's neighbours from the
+    per-neighbour delta analysis, bit-equal to the plain scorer. The
+    requester's fallback when the fused kernel is statically ineligible
+    (the JAX package vmaps it per neighbour)."""
+    p = _delta_parts(ctx, deltas, utils)
+    f64 = torch.float64
+    hard = (1000.0 * p["new_dups"].to(f64)
+            + (ctx["sum_overflow"][:, None] + p["d_over"]).to(f64))
+    medium = (ctx["sum_late"][:, None] + p["d_late"]).to(f64)
+    soft = (ctx["sum_dist"][:, None] + p["d_dist"]).to(f64) / 1000.0
+    row = torch.stack([hard, medium, soft], dim=-1)
+    bad = p["over_cap"] | ctx["base_over"][:, None]
+    return torch.where(bad[..., None],
+                       lexico.stub_score_row(3, device=row.device), row)
 
 
 def ctx_score_row(ctx, utils):
@@ -770,8 +1011,8 @@ class CotwinBuilder(CotwinBuilderBase):
             calculator.remove_constraint("late_arrival_penalty")
         if self.use_incremental_score_calculation:
             from greyjack_tpu_torch.models.vrp import delta_kernel, sweep
-            calculator.set_delta_kernels(build_delta_ctx, update_ctx,
-                                         ctx_score=ctx_score_row,
+            calculator.set_delta_kernels(build_delta_ctx, score_delta,
+                                         update_ctx, ctx_score=ctx_score_row,
                                          ctx_ints=ctx_int_totals,
                                          int_scales=[1.0, 1.0, 1000.0])
             calculator.set_delta_batch_kernel(

@@ -6,8 +6,10 @@ Islands are a leading tensor axis [I, ...]; one chunk advances every island
 `n_steps` steps (a Python loop), then runs ring migration (`torch.roll` by
 one: island i receives from island i-1), the lexicographic global-best
 reduce with adoption, and the per-chunk `refresh`. Dead islands are frozen
-by their step budget but keep relaying. Ported: the LocalSearch arm; the
-Population and LateAcceptance arms and multi-device meshes raise.
+by their step budget but keep relaying: a self-gating kernel freezes them
+itself, any other kernel's step is followed by `mask_state`. Ported: the
+LocalSearch arm, with the LateAcceptance ring in migration and adoption;
+the Population arm and multi-device meshes raise.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from greyjack_tpu_torch.agents import base as agent_base
+from greyjack_tpu_torch.agents import late_acceptance as la_mod
 from greyjack_tpu_torch.ops import lexico
 
 
@@ -40,9 +43,6 @@ class IslandRunner:
         if len(generators) != self.n_islands:
             raise ValueError("need one generator per island")
         islands = self.kernel.init_state(generators)
-        if "late" in islands:
-            raise NotImplementedError(
-                "LateAcceptance islands are not ported yet")
         pop = islands["population"]
         s = islands["scores"].shape[-1]
         return {
@@ -57,7 +57,9 @@ class IslandRunner:
         """Advance all islands `n_steps` steps, then migrate + reduce the
         global best + refresh. alive: bool[I]; steps_left: i32[I] per-island
         budget (islands freeze after it inside the chunk, so StepsLimit
-        stays exact)."""
+        stays exact). extras: f64[I] per-island values; an entry `<k>_end`
+        pairs with `<k>` to interpolate it linearly over the chunk's steps
+        (the per-step SA auto-temperature, `agent_base.rs:537-552`)."""
         if steps_left is None:
             steps_left = torch.full(alive.shape, n_steps, dtype=torch.int32,
                                     device=alive.device)
@@ -69,13 +71,24 @@ class IslandRunner:
 
     def _steps(self, islands, generators, alive, steps_left, extras, n_steps):
         step = self.kernel.step
+        ends = {k for k in extras if k.endswith("_end")}
+        lerped = {k for k in extras if k + "_end" in ends}
         for i in range(n_steps):
+            # per-step extras: `<k>` .. `<k>_end` lerped by step index; for
+            # StepsLimit the accomplish rate is linear in steps, so the lerp
+            # is exact
+            frac = i / n_steps
+            ex = {k: (v + (extras[k + "_end"] - v) * frac) if k in lerped
+                  else v for k, v in extras.items() if k not in ends}
             act = alive & (i < steps_left)
-            ex = dict(extras, _active=act)
             if self.kernel.prestep is not None:
                 ex.update(self.kernel.prestep(islands))
-            # the step freezes inactive islands itself (self-gating)
-            islands = step(generators, islands, ex)
+            if self.kernel.self_gating:
+                # the kernel freezes its own writes for inactive islands
+                islands = step(generators, islands, {**ex, "_active": act})
+            else:
+                islands = agent_base.mask_state(
+                    step(generators, islands, ex), islands, act)
         return islands
 
     def _refresh(self, state):
@@ -90,17 +103,24 @@ class IslandRunner:
     def _migrate(self, islands):
         """Ring exchange + acceptance (`agent_base.rs:322-444`), LocalSearch
         arm: each island takes its ring predecessor's individual when it is
-        no worse."""
+        no worse — for LateAcceptance, no worse than the ring's oldest
+        entry or the current score, and the migrant's score is pushed
+        (`agent_base.rs:416-428`)."""
         pop = islands["population"]                           # [I, 1, V]
         scores = islands["scores"]                            # [I, 1, S]
         mig_v = torch.roll(pop[:, 0], 1, dims=0)
         mig_s = torch.roll(scores[:, 0], 1, dims=0)
-        accept = lexico.lex_leq(mig_s, scores[:, 0])
+        islands = dict(islands)
+        if "late" in islands:
+            accept = la_mod.late_accept(mig_s, scores[:, 0], islands["late"])
+            islands["late"] = la_mod.ring_push_front(islands["late"], mig_s,
+                                                     accept)
+        else:
+            accept = lexico.lex_leq(mig_s, scores[:, 0])
         pop = pop.clone()
         scores = scores.clone()
         pop[:, 0] = torch.where(accept[:, None], mig_v, pop[:, 0])
         scores[:, 0] = torch.where(accept[:, None], mig_s, scores[:, 0])
-        islands = dict(islands)
         islands["population"] = pop
         islands["scores"] = scores
         return agent_base.update_top(islands)
@@ -119,12 +139,16 @@ class IslandRunner:
         if self.compare_to_global:
             # adopt the global best where strictly better than the island top
             adopt = lexico.lex_less(g_s, islands["top_score"])  # [I]
+            islands = dict(islands)
+            if "late" in islands:
+                # LateAcceptance pushes the pre-adoption score
+                islands["late"] = la_mod.ring_push_front(
+                    islands["late"], islands["scores"][:, 0], adopt)
             pop = islands["population"].clone()
             scores = islands["scores"].clone()
             pop[:, 0] = torch.where(adopt[:, None], g_v[None, :], pop[:, 0])
             scores[:, 0] = torch.where(adopt[:, None], g_s[None, :],
                                        scores[:, 0])
-            islands = dict(islands)
             islands["population"] = pop
             islands["scores"] = scores
 

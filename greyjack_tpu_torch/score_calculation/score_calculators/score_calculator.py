@@ -72,6 +72,9 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
 
         build_ctx(planning, facts, utils) -> ctx
             the O(N) base pass over one base candidate per island;
+        score_delta(ctx, deltas, utils) -> f64[I, P, S]
+            every island's neighbours (delta leaves [I, P, K]) scored
+            against its ctx, O(K) per neighbour;
         update_ctx(ctx, delta, utils) -> ctx
             applies one accepted delta per island;
         ctx_score(ctx, utils) -> f64[I, S], ctx_ints(ctx, utils) -> i64[I, S]
@@ -86,6 +89,7 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
     def __init__(self, score_class, device):
         super().__init__(score_class, device)
         self.delta_ctx_fn = None
+        self.delta_score_fn = None
         self.delta_update_fn = None
         self.delta_ctx_score_fn = None
         self.delta_score_batch_fn = None
@@ -94,13 +98,12 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         self.score_int_scales = None
         self.sweep_module = None
 
-    def set_delta_kernels(self, build_ctx, update_ctx, ctx_score=None,
-                          ctx_ints=None, int_scales=None):
+    def set_delta_kernels(self, build_ctx, score_delta, update_ctx,
+                          ctx_score=None, ctx_ints=None, int_scales=None):
         """Register the delta kernels (see the class docstring); `int_scales`
-        are the length-S divisors mapping `ctx_ints` to the f64 rows. The
-        JAX package's per-neighbour `score_delta` fallback is not ported
-        yet (ROADMAP Queue 1 item 3)."""
+        are the length-S divisors mapping `ctx_ints` to the f64 rows."""
         self.delta_ctx_fn = build_ctx
+        self.delta_score_fn = score_delta
         self.delta_update_fn = update_ctx
         self.delta_ctx_score_fn = ctx_score
         self.delta_ctx_ints_fn = ctx_ints

@@ -155,6 +155,20 @@ class ScoreRequester:
         frames = self.build_frames(base_rows)
         return calc.delta_ctx_fn(frames, self.fact_frames, self._delta_utils())
 
+    def request_score_delta(self, ctx, deltas):
+        """f64[I, P, S] score rows of every island's neighbourhood (delta
+        leaves [I, P, K]): the whole-neighbourhood scorer (the fused
+        kernel), or the per-neighbour `score_delta` when that scorer is
+        statically ineligible for this shape (it returns None)."""
+        calc = self.cotwin.score_calculator
+        utils = self._delta_utils()
+        batch_fn = getattr(calc, "delta_score_batch_fn", None)
+        if batch_fn is not None:
+            out = batch_fn(ctx, deltas, utils)
+            if out is not None:
+                return out
+        return calc.delta_score_fn(ctx, deltas, utils)
+
     def request_score_delta_ints(self, ctx, deltas):
         """Integer delta rows i32[I, P, S] for the local-search accept loop,
         or None when the model / kernel does not support them for this

@@ -131,6 +131,10 @@ class Solver:
         chunk_id = 0
         vm = requester.variables_manager
         solving_start = time.time()
+        is_sa_auto = (
+            getattr(agent_builder, "cooling_rate", object()) is None
+            and agent_builder.metaheuristic_name == "SimulatedAnnealing"
+        )
 
         if metrics is not None:
             metrics.start()
@@ -149,13 +153,27 @@ class Solver:
                     remaining = strat.steps_limit + 1 - strat.steps_made
                     budgets[i] = max(1, min(steps, remaining))
 
+            extras = {}
+            if is_sa_auto:
+                # per-step auto-temperature: the runner lerps start..end
+                # across the chunk (`agent_base.rs:537-552`; exact for
+                # StepsLimit, chunk-granular for time-based strategies)
+                extras["inverted_accomplish_rate"] = torch.tensor(
+                    [1.0 - s.get_accomplish_rate() for s in strategies],
+                    dtype=torch.float64, device=device)
+                extras["inverted_accomplish_rate_end"] = torch.tensor(
+                    [1.0 - s.predict_accomplish_rate(int(b))
+                     for s, b in zip(strategies, budgets)],
+                    dtype=torch.float64, device=device)
+
             chunk_moves = int(np.sum(budgets[alive])) * moves_per_step
             if metrics is not None:
                 _sync(device)
             t_chunk = time.time()
             state = runner.run_chunk(
-                state, generators, torch.as_tensor(alive, device=device), {},
-                steps, steps_left=torch.as_tensor(budgets, device=device))
+                state, generators, torch.as_tensor(alive, device=device),
+                extras, steps,
+                steps_left=torch.as_tensor(budgets, device=device))
             if metrics is not None:
                 _sync(device)
             chunk_ms = (time.time() - t_chunk) * 1e3

@@ -22,11 +22,14 @@ from greyjack_tpu_torch.interop import from_numpy_tree
 torch.set_num_threads(1)
 
 
-def vrp_pair(tw, n=40, d=2, kveh=6, seed=3, greedy=False):
+def vrp_pair(tw, n=40, d=2, kveh=6, seed=3, greedy=False, span=100.0):
     """(jax_requester, torch_requester, jax_domain, torch_domain) for one
-    synthetic instance built by both packages from the same seed."""
-    jd = j_generate(n, d, kveh, seed=seed, time_windowed=tw)
-    td = t_generate(n, d, kveh, seed=seed, time_windowed=tw)
+    synthetic instance built by both packages from the same seed. A large
+    `span` (coordinate range) makes an instance whose route metrics need
+    i64 accumulation, so the fused delta kernel and the sweep turn it
+    down."""
+    jd = j_generate(n, d, kveh, seed=seed, time_windowed=tw, span=span)
+    td = t_generate(n, d, kveh, seed=seed, time_windowed=tw, span=span)
     jreq = JScoreRequester(JCotwinBuilder(True, greedy).build_cotwin(jd, False))
     treq = TScoreRequester(TCotwinBuilder(True, greedy).build_cotwin(td, False))
     return jreq, treq, jd, td
@@ -47,18 +50,87 @@ def with_island_axis(tree):
     return jax.tree.map(lambda x: np.asarray(x)[None], to_np(tree))
 
 
+_STATE_DTYPES = {
+    ("sweep_scored",): np.int64,
+    ("sweep_nonconv",): np.int64,
+    ("sweep_stall",): np.int32,
+    ("temperature",): np.float64,
+    ("late", "buf"): np.float64,
+    ("late", "count"): np.int32,
+    ("late", "head"): np.int32,
+}
+
+
 def tabu_state_to_port(jstate):
-    """A JAX TabuSearch state batched over islands by `jax.vmap` (leaves
+    """A JAX local-search state (TabuSearch, LateAcceptance or
+    SimulatedAnnealing) batched over islands by `jax.vmap` (leaves
     [I, ...]) as the port's island state: the same keys, shapes and dtypes,
-    the sweep counters (`sweep_scored`, `sweep_nonconv`, `sweep_stall`)
-    included when the JAX kernel runs the sweep path."""
+    including the sweep counters (`sweep_scored`, `sweep_nonconv`,
+    `sweep_stall`), the LateAcceptance ring (`late`) and the SA
+    `temperature` where the JAX kernel carries them."""
     tree = to_np(jstate)
-    if "sweep_scored" in tree:
-        for key, dtype in (("sweep_scored", np.int64),
-                           ("sweep_nonconv", np.int64),
-                           ("sweep_stall", np.int32)):
-            assert tree[key].dtype == dtype, (key, tree[key].dtype)
+    for path, dtype in _STATE_DTYPES.items():
+        leaf = tree
+        for key in path:
+            leaf = leaf.get(key) if isinstance(leaf, dict) else None
+        if leaf is not None:
+            assert leaf.dtype == dtype, (path, leaf.dtype)
     return from_numpy_tree(tree)
+
+
+def jit_integer_stages(mp, jreqs):
+    """Make the JAX package's integer-only delta stages run jitted under
+    eager steps: `cotwin_builder._delta_parts`, `sweep.propose` and the
+    requesters' `update_ctx`. Their outputs are integers (and integral
+    floats), so jit changes no bit, and a step's eager run compiles far
+    fewer ops; the f64 score assembly and acceptance around them stay
+    eager, where `x / 1000.0` is not rewritten to `x * 0.001`. One jitted
+    program per instance (keyed by its distance matrix) and sweep config.
+    `mp` is a pytest MonkeyPatch."""
+    from greyjack_tpu.models.vrp import cotwin_builder as jcb
+    from greyjack_tpu.models.vrp import sweep as jsweep
+
+    cache = {}
+
+    def jitted(fn, key, *static):
+        if key not in cache:
+            cache[key] = jax.jit(lambda *a: fn(*a, *static))
+        return cache[key]
+
+    parts = jcb._delta_parts
+    propose = jsweep.propose
+    mp.setattr(jcb, "_delta_parts", lambda c, d, u: jitted(
+        parts, ("parts", id(u["dm_flat_milli"])), u)(c, d))
+    mp.setattr(jsweep, "propose", lambda key, c, free, masks, cfg, u: jitted(
+        propose, ("propose", id(cfg), id(u["dm_flat_milli"])), cfg, u)(
+            key, c, free, masks))
+    for jreq in jreqs:
+        mp.setattr(jreq, "update_ctx", jax.jit(jreq.update_ctx))
+
+
+def step_keys(seed, i, n_isl):
+    """Per-island JAX keys of step `i`."""
+    return jax.random.split(jax.random.fold_in(jax.random.key(seed), i),
+                            n_isl)
+
+
+def warm_jax_state(jk, n_isl, seed, warm_steps, extras=None):
+    """A JAX local-search kernel's island state (leaves [I, ...]) after
+    `warm_steps` jitted steps of every island. It is only an input to the
+    compared step, so jit's last-bit f64 differences do not matter here."""
+    import jax.numpy as jnp
+
+    st = jax.jit(jax.vmap(jk.init_state))(
+        jax.random.split(jax.random.key(seed), n_isl))
+    step = jax.jit(jax.vmap(jk.step))
+    for i in range(warm_steps):
+        ex = dict(extras or {})
+        if jk.self_gating:
+            ex["_active"] = jnp.ones((n_isl,), bool)
+        if jk.prestep is not None:
+            ex.update(jk.prestep(st))
+        st = step(step_keys(seed + 1, i, n_isl), st, ex)
+    return st
 
 
 def jax_sweep_targets(key, free, base_over, jcfg):
