@@ -6,20 +6,31 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile DIR    # also write torch.profiler
                                            # breakdowns of short solves
                                            # (int-delta, sweep, LA-random)
+    python3 chip_smoke.py --parent DIR     # also time the delta kernel of
+                                           # an earlier checkout in DIR
+                                           # (one warp a row, no launch
+                                           # plan) in turns with this one
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA delta kernel from `greyjack_tpu_torch/csrc/`;
+  2. build the CUDA delta kernel from `greyjack_tpu_torch/csrc/`, printing
+     ptxas's registers, spills and shared memory for every instantiation;
   3. the kernel vs its plain torch version on the card, bit-equal: the four
-     output blocks and the i32 delta rows, at n=40 (time windows on / off)
-     and at the flagship shape with the port's own sampled neighbourhoods;
+     output blocks and the i32 delta rows, on both kernel routes (the
+     shared route at n=40 with 2 islands x 512 neighbours, the direct
+     route with 2 x 1; time windows on / off; kd 2 / 1; and a route that
+     fills Rp = 128 at n=128), and at the flagship shape, which must take
+     the shared route, and the 512 x 1 shape, which must take the direct
+     one, with the port's own sampled neighbourhoods;
   4. `Solver.solve` on the flagship VRP (1000 customers, 8 depots,
      40 vehicles, greedy start, TabuSearch 4096 neighbours, 8 islands,
      200 steps): the kernel's launch count must be > 0, the path
      "int-delta", and the returned score must equal a plain rescore of the
      returned solution, bit for bit;
-  5. median kernel time vs plain time at the flagship shape (CUDA events)
-     and the solve's scored moves/s;
+  5. the kernel's time at the flagship and the 512 x 1 shapes: device only
+     (a CUDA graph of raw launches on preallocated outputs), with the
+     wrapper (`_call_kernel`, CUDA events) and its plain version's, beside
+     its bound; and the solve's scored moves/s;
   6. the VRP sweep neighbourhood (plain torch ops, no kernel of its own)
      on the card vs on the CPU, bit-equal: the stop table and route grids,
      every candidate family array and the deterministic half of `propose`
@@ -49,8 +60,10 @@ CUDA device is available or the repository is not beside this script.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,8 +117,87 @@ def cuda_ms(fn, reps=7, inner=10):
     return statistics.median(times), times
 
 
-def neighbourhood(req, islands, n, seed):
-    """The port's own sampled neighbourhood around each island's base."""
+def graph_ms(launch, reps=7, inner=20):
+    """Device-only time of one launch: a CUDA graph captures `inner` calls
+    of `launch` (raw kernel launches on preallocated outputs), and the
+    median over `reps` replays of the replay's event time over `inner` is
+    returned, with every replay's. No host work is inside the timed span."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times), times
+
+
+def raw_launcher(fn, args):
+    """A call of the C entry point `fn` with `args` on the current stream
+    (inside a capture, the capture's stream); raises on a launch error."""
+    import torch
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"raw kernel launch failed (cudaError {err})")
+    return launch
+
+
+def parent_args(inputs, outs, utils, kd, n_isl):
+    """Arguments (all but the stream) of the delta kernel's C entry point
+    as it stood before the launch plan and the route length were passed
+    to it (`--parent`)."""
+    rp = inputs[0].shape[-1] // 6
+    n_rows = inputs[1].shape[0]
+    return (*(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outs),
+            n_rows, n_rows // n_isl, utils["k_vehicles"], rp, kd,
+            int(bool(utils["time_windowed"])))
+
+
+def kernel_bound(inputs, utils, kd, n_isl):
+    """(bytes, operations, bound_ms, bound_by) of one delta-kernel call on
+    these inputs: each input byte read once (of the route table, only the
+    routes the rows name, whole Rp-slot rows) and each output byte written
+    once, over the H100's 3.35 TB/s; the integer operations on the slots a
+    row must process (base length + kd + 1, from this run's routes) at
+    about 40 i32 operations a slot, over the 33.5 TOP/s of its 64 INT32
+    lanes per SM (half the 67 TFLOP/s f32 rate)."""
+    import torch
+
+    ctx_mat, av_col = inputs[0], inputs[1]
+    k, rp = ctx_mat.shape[1], ctx_mat.shape[-1] // 6
+    n_rows = av_col.shape[0]
+    isl = torch.arange(n_rows, device=av_col.device) // (n_rows // n_isl)
+    route = isl * k + av_col[:, 0].long()
+    n_routes = int(torch.unique(route).numel())
+    n_bytes = (n_routes * 6 * rp * 4 + n_rows * 4
+               + 4 * n_rows * 8 * 4 + 4 * n_rows * 8 * 4)
+    base_len = (ctx_mat[..., :rp] < utils["n_stops"]).sum(-1).reshape(-1)
+    slots = int(torch.clamp(base_len[route] + kd + 1, max=rp).sum())
+    n_ops = 40 * slots
+    bytes_ms = n_bytes / 3.35e12 * 1e3
+    ops_ms = n_ops / 33.5e12 * 1e3
+    if bytes_ms >= ops_ms:
+        return n_bytes, n_ops, bytes_ms, "bytes"
+    return n_bytes, n_ops, ops_ms, "operations"
+
+
+def neighbourhood(req, islands, n, seed, full_route=False):
+    """The port's own sampled neighbourhood around each island's base;
+    `full_route` puts every stop of island 0 on vehicle 0."""
     import torch
     from greyjack_tpu_torch.ops import moves
     from greyjack_tpu_torch.solver.solver import island_generators
@@ -114,6 +206,9 @@ def neighbourhood(req, islands, n, seed):
     cfg = moves.MoverConfig(vm, TABU_RATE, None, MOVE_PROBAS)
     gens = island_generators(seed, islands, req.device)
     base = torch.stack([vm.sample_variables(g, 1)[0] for g in gens])
+    if full_route:
+        ids = req.planning_schema["planning_stops"]["var_ids_np"]
+        base[0, torch.as_tensor(ids["vehicle_id"]).long()] = 0
     ctx = req.build_base_ctx(base)
     deltas, _ = moves.move_population_delta(gens, base, n, vm, cfg,
                                             cfg.init_tabu_state(islands))
@@ -130,6 +225,8 @@ def compare(name, req, ctx, deltas):
     inputs, aux = dk._pre(ctx, deltas, utils)
     tw = bool(utils["time_windowed"])
     rows_per_island = inputs[1].shape[0] // aux["n_islands"]
+    route, warps, smem = dk._kernel_plan(
+        rows_per_island, utils["k_vehicles"], inputs[0].shape[-1] // 6, tw)
     got = dk._call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
     want = dk._kernel_reference(*inputs, kd=aux["kd"], tw=tw,
                                 rows_per_island=rows_per_island)
@@ -160,10 +257,11 @@ def compare(name, req, ctx, deltas):
     if not torch.equal(rows_k, rows_s):
         e = float((rows_k - rows_s).abs().max().item())
         fail(f"{name}: f64 rows differ from score_delta's (max |diff| {e})")
-    print(f"parity {name}: rows={inputs[1].shape[0]} blocks, i32 rows and "
+    print(f"parity {name}: rows={inputs[1].shape[0]} on the {route} route "
+          f"({warps} warps, {smem} B shared a block): blocks, i32 rows and "
           f"f64 rows bit-equal, f64 rows = score_delta (max_abs_err {err})",
           flush=True)
-    return err, inputs, aux
+    return err, inputs, aux, route
 
 
 def flagship_domain():
@@ -553,37 +651,61 @@ def main(argv):
     dk._library()
     build_s = time.perf_counter() - t0
     info = cuda_build.BUILD_INFO.get("vrp_delta", {})
-    ptx = [ln.strip() for ln in info.get("log", "").splitlines()
-           if "registers" in ln or "spill" in ln]
     print(f"build: vrp_delta {build_s:.3f} s (nvcc {info.get('seconds', 0):.3f}"
           f" s)", flush=True)
-    for ln in ptx:
-        print(f"  ptxas: {ln}", flush=True)
+    for ln in info.get("log", "").splitlines():
+        # name each instantiation (time windows, kd, route), then its
+        # registers, spills and shared memory
+        m = re.search(r"vrp_delta_(shared|direct)ILb([01])ELi([12])E", ln)
+        if "Compiling entry function" in ln and m:
+            print(f"  ptxas: kernel route={m[1]} tw={m[2]} kd={m[3]}",
+                  flush=True)
+        elif "registers" in ln or "spill" in ln:
+            print(f"  ptxas: {ln.strip()}", flush=True)
 
     # --- 2. parity ----------------------------------------------------------
+    # both kernel routes at n=40 (6 vehicles): 2 islands x 512 neighbours
+    # (1,536 rows an island, the shared route) and 2 islands x 1 neighbour
+    # (3 rows an island, the direct route); then a route that fills
+    # route_cap = Rp = 128 (n=128, 4 vehicles, every stop of island 0 on
+    # vehicle 0), where inserts overflow the padded row
     max_err = 0
+    cases = []
     for tw in (True, False):
         dom = generate_instance(40, 2, 6, seed=3, time_windowed=tw,
                                 device=DEVICE)
+        cases += [(f"n40 tw={tw}", dom, p, "shared" if p > 1 else "direct",
+                   False) for p in (512, 1)]
+    dom = generate_instance(128, 1, 4, seed=3, time_windowed=True,
+                            device=DEVICE)
+    cases += [(f"n128 full route p={p}", dom, p,
+               "shared" if p > 1 else "direct", True) for p in (256, 1)]
+    for name, dom, p, want_route, full in cases:
         req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(dom,
                                                                     False))
-        ctx, deltas = neighbourhood(req, 2, 512, seed=5)
-        e, _, _ = compare(f"n40 tw={tw} kd=2", req, ctx, deltas)
-        max_err = max(max_err, e)
+        ctx, deltas = neighbourhood(req, 2, p, seed=5, full_route=full)
         # kd=1: the first entry of each move alone is a one-variable change
         one = {k: v[..., :1].contiguous() for k, v in deltas.items()}
-        e, _, _ = compare(f"n40 tw={tw} kd=1", req, ctx, one)
-        max_err = max(max_err, e)
+        for kd, d in ((2, deltas), (1, one)):
+            e, _, _, route = compare(f"{name} kd={kd}", req, ctx, d)
+            max_err = max(max_err, e)
+            if route != want_route:
+                fail(f"{name} kd={kd} took the {route} route")
     freq = ScoreRequester(CotwinBuilder(True, True).build_cotwin(
         flagship_domain(), False))
     ctx, deltas = neighbourhood(freq, N_ISLANDS, NEIGHBOURS, seed=7)
-    e, inputs, aux = compare("flagship", freq, ctx, deltas)
+    e, inputs, aux, route = compare("flagship", freq, ctx, deltas)
     max_err = max(max_err, e)
+    if route != "shared":
+        fail(f"the flagship took the {route} route, not the shared one")
     # the random-move LA / SA shape: one neighbour per island
     ctx, deltas = neighbourhood(freq, RANDOM_ISLANDS, 1, seed=9)
-    e, r_inputs, r_aux = compare(f"flagship {RANDOM_ISLANDS}x1", freq, ctx,
-                                 deltas)
+    e, r_inputs, r_aux, r_route = compare(f"flagship {RANDOM_ISLANDS}x1",
+                                          freq, ctx, deltas)
     max_err = max(max_err, e)
+    if r_route != "direct":
+        fail(f"{RANDOM_ISLANDS}x1 took the {r_route} route, not the direct "
+             "one")
 
     # --- 3. the main path ---------------------------------------------------
     metrics = SolverMetrics()
@@ -614,27 +736,62 @@ def main(argv):
           f"over all chunks, {steady_mps:.1f} excluding the first chunk; "
           f"chunk ms {[r['wall_ms'] for r in metrics.records]}", flush=True)
 
-    # --- 4. timings at the flagship shape -----------------------------------
+    # --- 4. kernel timings at both main-path shapes ---------------------------
     utils = freq._delta_utils()
-    kd, n_isl = aux["kd"], aux["n_islands"]
-    rpi = inputs[1].shape[0] // n_isl
-    k_ms, k_all = cuda_ms(lambda: dk._call_kernel(inputs, utils, kd, n_isl))
-    p_ms, p_all = cuda_ms(lambda: dk._kernel_reference(
-        *inputs, kd=kd, tw=True, rows_per_island=rpi), inner=3)
-    print(f"kernel time [{card}] at {inputs[1].shape[0]} rows: "
-          f"{k_ms:.4f} ms (runs {[round(t, 4) for t in k_all]}); plain "
-          f"torch {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]})",
-          flush=True)
-    r_rows = r_inputs[1].shape[0]
-    rk_ms, rk_all = cuda_ms(lambda: dk._call_kernel(
-        r_inputs, utils, r_aux["kd"], RANDOM_ISLANDS))
-    rp_ms, rp_all = cuda_ms(lambda: dk._kernel_reference(
-        *r_inputs, kd=r_aux["kd"], tw=True,
-        rows_per_island=r_rows // RANDOM_ISLANDS))
-    print(f"kernel time, f64 route [{card}] at {r_rows} rows "
-          f"({RANDOM_ISLANDS} islands x 1 move): {rk_ms:.4f} ms (runs "
-          f"{[round(t, 4) for t in rk_all]}); plain torch {rp_ms:.4f} ms "
-          f"(runs {[round(t, 4) for t in rp_all]})", flush=True)
+    parent = None
+    if "--parent" in argv:
+        # the kernel of an earlier checkout, timed in turns with this one
+        # (parent, this, this, parent) on the same inputs
+        src = os.path.join(argv[argv.index("--parent") + 1],
+                           KERNEL_SOURCE)
+        parent = cuda_build.load_library("vrp_delta_parent",
+                                         [src]).gj_vrp_delta
+        parent.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
+        parent.restype = ctypes.c_int
+    shapes = []
+    for label, s_inputs, s_aux, s_route in (
+            ("int-delta", inputs, aux, route),
+            ("f64 random-move", r_inputs, r_aux, r_route)):
+        kd, n_isl = s_aux["kd"], s_aux["n_islands"]
+        rows = s_inputs[1].shape[0]
+        outs = [torch.empty((rows, 8), dtype=torch.int32, device=DEVICE)
+                for _ in range(4)]
+        this = raw_launcher(dk._library().gj_vrp_delta,
+                            dk._kernel_args(s_inputs, outs, utils, kd, n_isl))
+        entry = {"rows": rows, "kernel_route": s_route}
+        if parent is not None:
+            p_outs = [torch.empty_like(o) for o in outs]
+            before = raw_launcher(parent, parent_args(s_inputs, p_outs, utils,
+                                                   kd, n_isl))
+            turns = [graph_ms(fn) for fn in (before, this, this, before)]
+            if not all(torch.equal(a, b) for a, b in zip(outs, p_outs)):
+                fail(f"{label}: the parent kernel's blocks differ")
+            dev_ms = min(turns[1][0], turns[2][0])
+            entry["parent_device_ms"] = min(turns[0][0], turns[3][0])
+            print(f"kernel A/B, {label} [{card}] at {rows} rows, device only,"
+                  f" parent / this / this / parent: "
+                  f"{[round(t[0], 5) for t in turns]} ms", flush=True)
+        else:
+            dev_ms, dev_all = graph_ms(this)
+            print(f"kernel device time, {label} [{card}] at {rows} rows: "
+                  f"{dev_ms:.5f} ms (runs {[round(t, 5) for t in dev_all]})",
+                  flush=True)
+        w_ms, w_all = cuda_ms(
+            lambda: dk._call_kernel(s_inputs, utils, kd, n_isl))
+        p_ms, p_all = cuda_ms(lambda: dk._kernel_reference(
+            *s_inputs, kd=kd, tw=True, rows_per_island=rows // n_isl),
+            inner=3)
+        n_bytes, n_ops, b_ms, b_by = kernel_bound(s_inputs, utils, kd, n_isl)
+        print(f"kernel time, {label} [{card}] at {rows} rows, {s_route} "
+              f"route: device only (CUDA graph of raw launches) {dev_ms:.5f} "
+              f"ms; with the wrapper (`_call_kernel`, event-timed) "
+              f"{w_ms:.4f} ms (runs {[round(t, 4) for t in w_all]}); plain "
+              f"torch {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]}); "
+              f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B, {n_ops} i32 ops)"
+              f", {100 * b_ms / dev_ms:.1f}% of it", flush=True)
+        shapes.append({**entry, "device_ms": dev_ms, "wrapper_ms": w_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
 
     # --- 5. the sweep path ----------------------------------------------------
     sweep_parity()
@@ -651,10 +808,14 @@ def main(argv):
         for path in ("int-delta", "sweep", "la-random"):
             profile(out_dir, path)
 
+    flag = shapes[0]
     print(json.dumps({"kernels": [{
         "name": "vrp_delta", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "max_abs_err": max_err, "ms": flag["device_ms"],
+        "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "bound_by": flag["bound_by"], "library_ms": None,
+        "shapes": shapes}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

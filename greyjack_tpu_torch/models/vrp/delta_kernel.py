@@ -5,7 +5,10 @@ Stages, as in the JAX package:
   `_pre`          per-neighbour scalar analysis (`_delta_common`) and the
                   packed per-(neighbour, route) kernel input columns;
   `_call_kernel`  the fused route pipeline, one row per (island, neighbour,
-                  affected route): `csrc/vrp_delta.cu` on a CUDA tensor,
+                  affected route): `csrc/vrp_delta.cu` on a CUDA tensor, on
+                  the route `_kernel_plan` picks by shape ("shared": the
+                  island's routes in shared memory, a thread a row;
+                  "direct": a warp a row reading device memory),
                   `_kernel_reference` (plain torch) on a CPU tensor;
   `_post`         the one distance-matrix gather per neighbour, loads, and
                   lexicographic score assembly (f64 rows or i32 delta rows).
@@ -345,7 +348,35 @@ def _kernel_reference(ctx_mat, av_col, sc, ins, pay, el, *, kd, tw,
             torch.cat(cs + pad, dim=1))
 
 
+# The H100's shared memory for one block, and the kernel's block sizes
+# (`kMaxWarps`, `kDirectWarps` and `kRoutePad` in csrc/vrp_delta.cu)
+_SMEM_LIMIT = 232_448
+_SMEM_RESERVED = 64           # the block's mbarrier (static shared memory)
+_MAX_WARPS = 24
+_DIRECT_WARPS = 8
+_ROUTE_PAD = 4
+ROUTES = ("direct", "shared")
+
+
+def _kernel_plan(rows_per_island, k, rp, tw):
+    """(route, warps, smem_bytes) of one kernel launch, a static choice by
+    shape. "shared": the island has at least K rows to share its K routes,
+    Rp is 128, and one block's shared memory holds the routes (K x (6*rp +
+    4) i32, padded for the banks), their lengths, and one byte a slot for
+    each of its threads, one thread walking a row. "direct" otherwise: one
+    warp a row, its route read from device memory, its merge in a shared
+    row of NK x rp keys beside a 32-word stash."""
+    threads = 32 * _MAX_WARPS
+    smem = 4 * k * (6 * rp + _ROUTE_PAD) + 4 * k + rp * threads
+    if (rows_per_island >= k and rp <= 128
+            and smem + _SMEM_RESERVED <= _SMEM_LIMIT):
+        return "shared", _MAX_WARPS, smem
+    nk = 5 if tw else 2
+    return "direct", _DIRECT_WARPS, _DIRECT_WARPS * 4 * (32 + nk * rp)
+
+
 _LIB = {}
+_SMS = {}
 
 
 def _library():
@@ -357,10 +388,29 @@ def _library():
         lib = cuda_build.load_library("vrp_delta", [_SOURCE])
         fn = lib.gj_vrp_delta
         fn.argtypes = ([ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB["lib"] = lib
     return _LIB["lib"]
+
+
+def _kernel_args(inputs, outs, utils, kd, n_islands):
+    """The C entry point's arguments but the stream: pointers, shapes, and
+    the launch plan of `_kernel_plan`."""
+    ctx_mat, av_col = inputs[0], inputs[1]
+    dev = ctx_mat.device
+    nrows = av_col.shape[0]
+    kveh = utils["k_vehicles"]
+    rp = ctx_mat.shape[-1] // 6
+    tw = bool(utils["time_windowed"])
+    route, warps, smem = _kernel_plan(nrows // n_islands, kveh, rp, tw)
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return (*(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outs),
+            nrows, nrows // n_islands, kveh, rp, kd, int(tw),
+            utils["n_stops"], ROUTES.index(route), warps, smem,
+            _SMS[dev.index])
 
 
 def _call_kernel(inputs, utils, kd, n_islands):
@@ -392,7 +442,7 @@ def _call_kernel(inputs, utils, kd, n_islands):
     for name, t, cols in (("ctx_mat", ctx_mat, 6 * rp), ("av_col", av_col, 1),
                           ("sc", sc_pack, 8), ("ins", ins_pack, 8),
                           ("pay", pay_pack, 8), ("el", el_pack, 8)):
-        # the kernel reads rows with 16-byte vector loads
+        # the kernel copies route slabs with 16-byte aligned bulk copies
         if (t.device != dev or t.dtype != _I32 or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"vrp delta kernel: {name} must be contiguous, "
@@ -404,11 +454,8 @@ def _call_kernel(inputs, utils, kd, n_islands):
         return tuple(outs)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.gj_vrp_delta(
-        ctx_mat.data_ptr(), av_col.data_ptr(), sc_pack.data_ptr(),
-        ins_pack.data_ptr(), pay_pack.data_ptr(), el_pack.data_ptr(),
-        *(o.data_ptr() for o in outs),
-        nrows, rows_per_island, kveh, rp, kd, int(tw), stream)
+    err = lib.gj_vrp_delta(*_kernel_args(inputs, outs, utils, kd, n_islands),
+                           stream)
     if err != 0:
         raise RuntimeError(f"vrp delta kernel launch failed (cudaError {err})")
     _call_kernel.launches += 1

@@ -82,10 +82,12 @@ def _build_plan(name, customers, n_depots, k_vehicles, capacity,
 
 def generate_instance(n_customers, n_depots=1, k_vehicles=10, seed=0,
                       time_windowed=False, span=100.0, name=None,
-                      device="cpu"):
+                      device="cuda"):
     """Synthetic belgium-style instance, draw for draw the JAX package's:
     uniform coordinates, U{1..30} demands, capacity sized for ~1.3x slack,
-    day-long depot windows, random customer windows."""
+    day-long depot windows, random customer windows. The instance's
+    tensors live on `device`, the card unless the caller names another
+    (tests pass device="cpu"); without a card the default raises."""
     rng = np.random.default_rng(seed)
     total = n_depots + n_customers
     pts = rng.uniform(0.0, span, size=(total, 2))

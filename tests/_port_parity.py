@@ -29,7 +29,8 @@ def vrp_pair(tw, n=40, d=2, kveh=6, seed=3, greedy=False, span=100.0):
     i64 accumulation, so the fused delta kernel and the sweep turn it
     down."""
     jd = j_generate(n, d, kveh, seed=seed, time_windowed=tw, span=span)
-    td = t_generate(n, d, kveh, seed=seed, time_windowed=tw, span=span)
+    td = t_generate(n, d, kveh, seed=seed, time_windowed=tw, span=span,
+                    device="cpu")
     jreq = JScoreRequester(JCotwinBuilder(True, greedy).build_cotwin(jd, False))
     treq = TScoreRequester(TCotwinBuilder(True, greedy).build_cotwin(td, False))
     return jreq, treq, jd, td
@@ -41,7 +42,7 @@ def to_np(tree):
 
 def to_torch(tree):
     """JAX arrays -> torch tensors (CPU), same keys and dtypes."""
-    return from_numpy_tree(to_np(tree))
+    return from_numpy_tree(to_np(tree), device="cpu")
 
 
 def with_island_axis(tree):
@@ -75,7 +76,7 @@ def tabu_state_to_port(jstate):
             leaf = leaf.get(key) if isinstance(leaf, dict) else None
         if leaf is not None:
             assert leaf.dtype == dtype, (path, leaf.dtype)
-    return from_numpy_tree(tree)
+    return from_numpy_tree(tree, device="cpu")
 
 
 def jit_integer_stages(mp, jreqs):

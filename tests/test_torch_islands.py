@@ -73,10 +73,11 @@ def test_tabu_step_matches_jax(monkeypatch):
         deltas, info = sample(keys, st, free)
         new = jstep(keys, st, {"_free": free, "_active": active})
 
-    tst = from_numpy_tree(to_np(st))
+    tst = from_numpy_tree(to_np(st), device="cpu")
     tfree = tk.prestep(tst)["_free"]
     assert_tree_equal(to_np(free), tfree, "free")
-    fed = (from_numpy_tree(to_np(deltas)), from_numpy_tree(to_np(info)))
+    fed = (from_numpy_tree(to_np(deltas), device="cpu"),
+           from_numpy_tree(to_np(info), device="cpu"))
     monkeypatch.setattr(tmoves, "move_population_delta", lambda *a, **k: fed)
     tnew = tk.step(None, tst, {"_free": tfree,
                                "_active": torch.tensor([True, True, False])})
@@ -110,9 +111,10 @@ def test_migrate_and_global_best_match_jax(seed):
         np.float32), "global_score": np.array([1.0, 1.0, 1.0])}
     jm = jr._migrate(jax.tree.map(jnp.asarray, islands),
                      roll_fn=lambda x: jnp.roll(x, 1, axis=0))
-    tm = tr._migrate(from_numpy_tree(islands))
+    tm = tr._migrate(from_numpy_tree(islands, device="cpu"))
     assert_tree_equal(to_np(jm), tm, "migrate")
     jg = jr._update_global({**jax.tree.map(jnp.asarray, state),
                             "islands": jm}, jm, gather_fn=None)
-    tg = tr._update_global({**from_numpy_tree(state), "islands": tm}, tm)
+    tg = tr._update_global({**from_numpy_tree(state, device="cpu"),
+                            "islands": tm}, tm)
     assert_tree_equal(to_np(jg), tg, "global")

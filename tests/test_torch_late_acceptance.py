@@ -123,7 +123,7 @@ def test_delta_step_matches_jax(monkeypatch, warm):
                            jnp.asarray(_ACTIVE))
 
     tst = tabu_state_to_port(st)
-    tfed = from_numpy_tree(to_np(fed))
+    tfed = from_numpy_tree(to_np(fed), device="cpu")
     monkeypatch.setattr(tmoves, "move_population_delta", lambda *a, **k: tfed)
     tnew = tbase.mask_state(tk.step(None, tst, {}), tst,
                             torch.from_numpy(_ACTIVE))
@@ -190,11 +190,12 @@ def test_migrate_and_adopt_late_arms_match_jax(seed):
         np.float32), "global_score": np.array([1.0, 0.0, 1.0])}
     jm = jr._migrate(jax.tree.map(jnp.asarray, islands),
                      roll_fn=lambda x: jnp.roll(x, 1, axis=0))
-    tm = tr._migrate(from_numpy_tree(islands))
+    tm = tr._migrate(from_numpy_tree(islands, device="cpu"))
     assert_tree_equal(to_np(jm), tm, "migrate")
     jg = jr._update_global({**jax.tree.map(jnp.asarray, state),
                             "islands": jm}, jm, gather_fn=None)
-    tg = tr._update_global({**from_numpy_tree(state), "islands": tm}, tm)
+    tg = tr._update_global({**from_numpy_tree(state, device="cpu"),
+                            "islands": tm}, tm)
     assert_tree_equal(to_np(jg), tg, "global")
     # both arms pushed into some ring and left others alone
     for before, after in ((islands, jm), (jm, jg["islands"])):
@@ -205,7 +206,7 @@ def test_migrate_and_adopt_late_arms_match_jax(seed):
 
 def _gen(tw=True, span=100.0):
     return lambda: generate_instance(30, 2, 5, seed=3, time_windowed=tw,
-                                     span=span)
+                                     span=span, device="cpu")
 
 
 def _solve(agent, gen, n_jobs=3):

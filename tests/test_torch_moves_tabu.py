@@ -91,7 +91,7 @@ def test_tabu_free_island_batched(pair):
               for s in range(3)]
     jb = jax.tree.map(lambda *x: np.stack(x), *states)
     jfl, jcnt = jc.tabu_free(jax.tree.map(jnp.asarray, jb))
-    tfl, tcnt = tc.tabu_free(from_numpy_tree(jb))
+    tfl, tcnt = tc.tabu_free(from_numpy_tree(jb, device="cpu"))
     assert_leaf_equal(jfl, tfl, "free_list")
     assert_leaf_equal(jcnt, tcnt, "free_count")
 
@@ -109,7 +109,7 @@ def test_delta_helpers(pair, probas):
     pos = np.asarray(deltas["positions"]).copy()
     pos[::5, 1] = pos[::5, 0]
     deltas = {**deltas, "positions": jnp.asarray(pos)}
-    tdeltas = from_numpy_tree(to_np(deltas))
+    tdeltas = from_numpy_tree(to_np(deltas), device="cpu")
     assert_tree_equal(to_np(jax.vmap(jmoves.dedupe_delta)(deltas)),
                       tmoves.dedupe_delta(tdeltas))
     idx = np.array([0, 17, 63, 5], np.int32)
@@ -119,9 +119,10 @@ def test_delta_helpers(pair, probas):
                              torch.tensor([i]))
         assert_tree_equal(to_np(jw), {k: v[0] for k, v in tw.items()})
         jrow = jmoves.apply_delta(base, jw)
-        trow = tmoves.apply_delta(from_numpy_tree(to_np(base))[None], tw)
+        trow = tmoves.apply_delta(
+            from_numpy_tree(to_np(base), device="cpu")[None], tw)
         assert_leaf_equal(jrow, trow[0], "apply_delta")
-    tinfo = from_numpy_tree(to_np(info))
+    tinfo = from_numpy_tree(to_np(info), device="cpu")
     tst = tmoves.update_tabu_from_info(
         tmoves.MoverConfig(treq.variables_manager, 0.2, None, probas)
         .init_tabu_state(1),

@@ -76,8 +76,9 @@ def test_steps_mask_and_lerp_match_jax(self_gating):
     want = jr._steps(jax.tree.map(jnp.asarray, islands), jax.random.key(0),
                      jnp.asarray(alive), jnp.asarray(steps_left),
                      jax.tree.map(jnp.asarray, extras), n_steps, _N_ISL)
-    got = tr._steps(from_numpy_tree(islands), None, torch.from_numpy(alive),
-                    torch.from_numpy(steps_left), from_numpy_tree(extras),
+    got = tr._steps(from_numpy_tree(islands, device="cpu"), None,
+                    torch.from_numpy(alive), torch.from_numpy(steps_left),
+                    from_numpy_tree(extras, device="cpu"),
                     n_steps)
     assert_tree_equal(to_np(want), got, "islands")
     # the dead island is its input, bit for bit; island 2 froze after 3
@@ -145,7 +146,7 @@ def test_tabu_f64_delta_step_matches_jax(monkeypatch, i64_tabu):
                                        "_active": jnp.asarray(active)})
 
     tst = tabu_state_to_port(st)
-    tfed = from_numpy_tree(to_np(fed))
+    tfed = from_numpy_tree(to_np(fed), device="cpu")
     monkeypatch.setattr(tmoves, "move_population_delta", lambda *a, **k: tfed)
     before = delta_kernel._call_kernel.launches
     tnew = tk.step(None, tst, {"_free": tk.prestep(tst)["_free"],

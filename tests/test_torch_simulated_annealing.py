@@ -152,11 +152,11 @@ def test_delta_step_matches_jax(monkeypatch, warm, cooling):
                            jnp.asarray(_ACTIVE))
 
     tst = tabu_state_to_port(st)
-    tfed = from_numpy_tree(to_np(fed))
+    tfed = from_numpy_tree(to_np(fed), device="cpu")
     u = _accept_draws(keys)
     monkeypatch.setattr(tmoves, "move_population_delta", lambda *a, **k: tfed)
     _feed_u(monkeypatch, u)
-    tex = from_numpy_tree(to_np(extras))
+    tex = from_numpy_tree(to_np(extras), device="cpu")
     traw = tk.step(None, tst, tex)
     tnew = tbase.mask_state(traw, tst, torch.from_numpy(_ACTIVE))
     assert_tree_equal(to_np(new), tnew, "state")
@@ -202,7 +202,7 @@ def test_sweep_step_matches_jax(monkeypatch, warm, cooling):
     monkeypatch.setattr(tsweep, "sample_targets", lambda *a, **k: targets)
     u = _accept_draws(keys)
     _feed_u(monkeypatch, u)
-    tex = {**from_numpy_tree(to_np(extras)), "_free": tfree,
+    tex = {**from_numpy_tree(to_np(extras), device="cpu"), "_free": tfree,
            "_active": torch.from_numpy(_ACTIVE)}
     tnew = tk.step(None, tst, tex)
     assert_tree_equal(to_np(new), tnew, "state")
@@ -233,7 +233,8 @@ def test_sweep_step_matches_jax(monkeypatch, warm, cooling):
 
 
 def _gen(tw=True):
-    return lambda: generate_instance(30, 2, 5, seed=3, time_windowed=tw)
+    return lambda: generate_instance(30, 2, 5, seed=3, time_windowed=tw,
+                                     device="cpu")
 
 
 @pytest.mark.parametrize("sweep,cooling", [(True, 0.9999), (False, 0.9999),

@@ -26,7 +26,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("tw", [True, False])
 def test_solve_small_vrp_matches_plain_rescore(tw):
     def gen():
-        return generate_instance(40, 2, 6, seed=3, time_windowed=tw)
+        return generate_instance(40, 2, 6, seed=3, time_windowed=tw,
+                                 device="cpu")
 
     agent = TabuSearch(64, 0.2, True, None, [0.5, 0.5, 0, 0, 0, 0], 10,
                        StepsLimit(30))
@@ -72,7 +73,7 @@ def test_unported_options_raise():
     agent = TabuSearch(8, 0.2, True, None, [0.5, 0.5, 0, 0, 0, 0], 2,
                        StepsLimit(2))
     db = DomainBuilder.from_generator(
-        lambda: generate_instance(10, 1, 2, seed=1))
+        lambda: generate_instance(10, 1, 2, seed=1, device="cpu"))
     with pytest.raises(NotImplementedError):
         Solver.solve(db, CotwinBuilder(True, True, exact_fp_scores=True),
                      agent, 1, seed=0,

@@ -106,7 +106,8 @@ def test_sweep_step_matches_jax(monkeypatch, warm, stall):
 @pytest.mark.parametrize("tw", [True, False])
 def test_solve_small_vrp_sweep_path(tw):
     def gen():
-        return generate_instance(30, 2, 5, seed=3, time_windowed=tw)
+        return generate_instance(30, 2, 5, seed=3, time_windowed=tw,
+                                 device="cpu")
 
     agent = TabuSearch(64, 0.2, True, None, _PROBAS, 5, StepsLimit(19),
                        sweep=True, sweep_targets=_TARGETS,
@@ -139,7 +140,8 @@ def _late_window(domain):
 def test_ineligible_sweep_warns_and_runs_int_delta():
     def gen():
         return _late_window(generate_instance(30, 2, 5, seed=3,
-                                              time_windowed=True))
+                                              time_windowed=True,
+                                              device="cpu"))
 
     jreq = JScoreRequester(JCotwinBuilder(True, True).build_cotwin(
         _late_window(j_generate(30, 2, 5, seed=3, time_windowed=True)),

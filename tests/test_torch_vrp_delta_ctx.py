@@ -62,7 +62,8 @@ def test_update_ctx_matches_jax_and_fresh_build(tw, probas):
         w = jax.tree.map(lambda x: x[0], d)
         base = jmoves.apply_delta(base, w)
         jctx = jreq.update_ctx(jctx, w)
-        tctx = treq.update_ctx(tctx, from_numpy_tree(with_island_axis(w)))
+        tctx = treq.update_ctx(
+            tctx, from_numpy_tree(with_island_axis(w), device="cpu"))
         assert_tree_equal(to_np(jctx), _island(tctx, 0), f"update{i}")
         fresh = treq.build_base_ctx(to_torch(base)[None])
         assert_tree_equal({k: v.numpy() for k, v in fresh.items()}, tctx,

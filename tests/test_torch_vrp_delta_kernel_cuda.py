@@ -1,7 +1,9 @@
 """The CUDA delta kernel vs its plain torch version, on the card, on the
 cases of `tests/test_torch_vrp_delta_kernel.py`: change+swap with and
 without time windows, one-variable changes, swaps only, and a ctx advanced
-by accepted winners.
+by accepted winners; and on both of the kernel's routes ("shared" with
+many rows an island, "direct" with few), including a route that fills
+route_cap.
 
 Needs an NVIDIA GPU with the CUDA toolkit; skips elsewhere. This file
 imports only the port, so it also runs where jax is not installed:
@@ -29,15 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, tw, probas, kd=2, n_updates=0, islands=2, p=256, seed=3):
-    domain = generate_instance(40, 2, 6, seed=seed, time_windowed=tw,
-                               device=device)
+def _inputs(device, tw, probas, kd=2, n_updates=0, islands=2, p=256, seed=3,
+            n=40, k=6, full_route=False):
+    domain = generate_instance(n, 2 if k > 4 else 1, k, seed=seed,
+                               time_windowed=tw, device=device)
     req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(domain,
                                                                 False))
     vm = req.variables_manager
     cfg = moves.MoverConfig(vm, 0.2, None, probas)
     gens = island_generators(seed, islands, device)
     base = torch.stack([vm.sample_variables(g, 1)[0] for g in gens])
+    if full_route:
+        # every stop of island 0 on vehicle 0: a route of route_cap stops
+        ids = req.planning_schema["planning_stops"]["var_ids_np"]
+        base[0, torch.as_tensor(ids["vehicle_id"]).long()] = 0
     ctx = req.build_base_ctx(base)
     tabu = cfg.init_tabu_state(islands)
     for _ in range(n_updates):
@@ -86,6 +93,38 @@ def test_kernel_matches_reference(cuda, tw, probas, kd, n_updates):
         {k: v.cpu() for k, v in ctx.items()},
         {k: v.cpu() for k, v in deltas.items()}, cpu)
     assert torch.equal(ints.cpu(), ints_cpu)
+
+
+@pytest.mark.parametrize("p,route", [(256, "shared"), (1, "direct")])
+@pytest.mark.parametrize("tw", [True, False])
+@pytest.mark.parametrize("kd", [2, 1])
+@pytest.mark.parametrize("full_route", [False, True])
+def test_kernel_routes_match_reference(cuda, p, route, tw, kd, full_route):
+    # n=40 over 6 vehicles (2 x 256 neighbours: 768 rows an island >= K,
+    # the shared route; 2 x 1: 3 rows an island, the direct route), or
+    # n=128 over 4 vehicles with island 0's every stop on vehicle 0, a
+    # route that fills route_cap = Rp = 128
+    n, k = (128, 4) if full_route else (40, 6)
+    req, ctx, deltas = _inputs(cuda, tw, _CHANGE_SWAP, kd, p=p, n=n, k=k,
+                               full_route=full_route)
+    utils = req._delta_utils()
+    inputs, aux = delta_kernel._pre(ctx, deltas, utils)
+    rows = inputs[1].shape[0]
+    plan = delta_kernel._kernel_plan(rows // aux["n_islands"],
+                                     utils["k_vehicles"],
+                                     inputs[0].shape[-1] // 6, tw)
+    assert plan[0] == route
+    if full_route:
+        assert utils["route_cap"] == inputs[0].shape[-1] // 6 == 128
+        assert int(ctx["len"][0].max()) == 128
+    got = delta_kernel._call_kernel(inputs, utils, aux["kd"],
+                                    aux["n_islands"])
+    torch.cuda.synchronize()
+    want = delta_kernel._kernel_reference(
+        *inputs, kd=aux["kd"], tw=tw,
+        rows_per_island=rows // aux["n_islands"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_wrong_dtype_raises(cuda):

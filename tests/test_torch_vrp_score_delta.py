@@ -90,8 +90,8 @@ def test_delta_parts_small_and_score_delta(pairs, inst, probas, seed, kd):
     jreq, treq = pairs[inst]
     uj, ut = jreq._delta_utils(), treq._delta_utils()
     jctx, jdeltas = _case(pairs[inst], probas, seed, kd)
-    tctx, tdeltas = from_numpy_tree(to_np(jctx)), from_numpy_tree(
-        to_np(jdeltas))
+    tctx = from_numpy_tree(to_np(jctx), device="cpu")
+    tdeltas = from_numpy_tree(to_np(jdeltas), device="cpu")
     assert tdeltas["positions"].shape[-1] <= tcb._SMALL_DELTA_MAX
     # integer parts: the JAX side jitted (exact for integers)
     want = jax.jit(lambda c, d: _jax_per_neighbour(
@@ -111,8 +111,8 @@ def test_wide_deltas_take_the_sorted_merge(pairs):
     jreq, treq = pairs["tw"]
     uj, ut = jreq._delta_utils(), treq._delta_utils()
     jctx, jdeltas = _case(pairs["tw"], _CHANGE_SWAP, 17, kd=6)
-    tctx, tdeltas = from_numpy_tree(to_np(jctx)), from_numpy_tree(
-        to_np(jdeltas))
+    tctx = from_numpy_tree(to_np(jctx), device="cpu")
+    tdeltas = from_numpy_tree(to_np(jdeltas), device="cpu")
     want = to_np(jax.jit(lambda c, d: _jax_per_neighbour(
         lambda cc, dd: jcb._delta_parts_sorted(cc, dd, uj), c, d))(
         jctx, jdeltas))
@@ -136,8 +136,8 @@ def test_request_score_delta_kernel_route(pairs, inst):
     jreq, treq = pairs[inst]
     ut = treq._delta_utils()
     jctx, jdeltas = _case(pairs[inst], _CHANGE_SWAP, 29)
-    tctx, tdeltas = from_numpy_tree(to_np(jctx)), from_numpy_tree(
-        to_np(jdeltas))
+    tctx = from_numpy_tree(to_np(jctx), device="cpu")
+    tdeltas = from_numpy_tree(to_np(jdeltas), device="cpu")
     assert delta_kernel.eligible(ut, tdeltas)
     got = treq.request_score_delta(tctx, tdeltas)
     # the kernel route's rows are the fused scorer's own
@@ -156,8 +156,8 @@ def test_i64_instance_takes_score_delta(pairs):
     assert ut["acc_dtype"] == torch.int64
     assert jreq._delta_utils()["acc_dtype"] == jnp.int64
     jctx, jdeltas = _case(pairs["i64"], _CHANGE_SWAP, 31)
-    tctx, tdeltas = from_numpy_tree(to_np(jctx)), from_numpy_tree(
-        to_np(jdeltas))
+    tctx = from_numpy_tree(to_np(jctx), device="cpu")
+    tdeltas = from_numpy_tree(to_np(jdeltas), device="cpu")
     assert delta_kernel.score_delta_batch(tctx, tdeltas, ut) is None
     assert treq.request_score_delta_ints(tctx, tdeltas) is None
     before = delta_kernel._call_kernel.launches

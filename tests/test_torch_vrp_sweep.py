@@ -188,7 +188,7 @@ def test_propose_from_jax_targets_bit_equal(tw, window, seed):
     t_rows = torch.from_numpy(np.stack([r[0] for r in rows]))
     t_valid = torch.from_numpy(np.stack([r[1] for r in rows]))
 
-    ttabu = from_numpy_tree(_stack(jtabu))
+    ttabu = from_numpy_tree(_stack(jtabu), device="cpu")
     row_tabu = tsweep.tabu_rows(tm.tabu_masks(ttabu), tc, _ISLANDS)
     assert row_tabu.any()
     got = tsweep.propose_from_targets(tctx, t_rows, t_valid, row_tabu, tc,
