@@ -6,10 +6,6 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile DIR    # also write torch.profiler
                                            # breakdowns of short solves
                                            # (int-delta, sweep, LA-random)
-    python3 chip_smoke.py --parent DIR     # also time the delta kernel of
-                                           # an earlier checkout in DIR
-                                           # (one warp a row, no launch
-                                           # plan) in turns with this one
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -18,10 +14,11 @@ Phases, each fatal on failure:
   3. the kernel vs its plain torch version on the card, bit-equal: the four
      output blocks and the i32 delta rows, on both kernel routes (the
      shared route at n=40 with 2 islands x 512 neighbours, the direct
-     route with 2 x 1; time windows on / off; kd 2 / 1; and a route that
-     fills Rp = 128 at n=128), and at the flagship shape, which must take
-     the shared route, and the 512 x 1 shape, which must take the direct
-     one, with the port's own sampled neighbourhoods;
+     route with 2 x 1; time windows on / off; kd 2 / 1; a route that
+     fills Rp = 128 at n=128; and one that fills Rp = 384 at n=300, on the
+     direct route at both neighbour counts), and at the flagship shape,
+     which must take the shared route, and the 512 x 1 shape, which must
+     take the direct one, with the port's own sampled neighbourhoods;
   4. `Solver.solve` on the flagship VRP (1000 customers, 8 depots,
      40 vehicles, greedy start, TabuSearch 4096 neighbours, 8 islands,
      200 steps): the kernel's launch count must be > 0, the path
@@ -60,7 +57,6 @@ CUDA device is available or the repository is not beside this script.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import re
@@ -156,25 +152,16 @@ def raw_launcher(fn, args):
     return launch
 
 
-def parent_args(inputs, outs, utils, kd, n_isl):
-    """Arguments (all but the stream) of the delta kernel's C entry point
-    as it stood before the launch plan and the route length were passed
-    to it (`--parent`)."""
-    rp = inputs[0].shape[-1] // 6
-    n_rows = inputs[1].shape[0]
-    return (*(t.data_ptr() for t in inputs), *(o.data_ptr() for o in outs),
-            n_rows, n_rows // n_isl, utils["k_vehicles"], rp, kd,
-            int(bool(utils["time_windowed"])))
-
-
 def kernel_bound(inputs, utils, kd, n_isl):
     """(bytes, operations, bound_ms, bound_by) of one delta-kernel call on
-    these inputs: each input byte read once (of the route table, only the
-    routes the rows name, whole Rp-slot rows) and each output byte written
-    once, over the H100's 3.35 TB/s; the integer operations on the slots a
-    row must process (base length + kd + 1, from this run's routes) at
-    about 40 i32 operations a slot, over the 33.5 TOP/s of its 64 INT32
-    lanes per SM (half the 67 TFLOP/s f32 rate)."""
+    these inputs: each input byte read once and each output byte written
+    once, over the H100's 3.35 TB/s. Of the route table that is, for each
+    route the rows name, the slots a row can read (base length + kd + 1,
+    at most Rp, from this run's routes) of the tables the function uses
+    (six with time windows, three without), in whole 32 B sectors. The
+    integer operations on those slots, about 40 i32 operations a slot a
+    row, go over the 33.5 TOP/s of its 64 INT32 lanes per SM (half the
+    67 TFLOP/s f32 rate)."""
     import torch
 
     ctx_mat, av_col = inputs[0], inputs[1]
@@ -182,12 +169,13 @@ def kernel_bound(inputs, utils, kd, n_isl):
     n_rows = av_col.shape[0]
     isl = torch.arange(n_rows, device=av_col.device) // (n_rows // n_isl)
     route = isl * k + av_col[:, 0].long()
-    n_routes = int(torch.unique(route).numel())
-    n_bytes = (n_routes * 6 * rp * 4 + n_rows * 4
-               + 4 * n_rows * 8 * 4 + 4 * n_rows * 8 * 4)
     base_len = (ctx_mat[..., :rp] < utils["n_stops"]).sum(-1).reshape(-1)
-    slots = int(torch.clamp(base_len[route] + kd + 1, max=rp).sum())
-    n_ops = 40 * slots
+    need = torch.clamp(base_len + kd + 1, max=rp)
+    sectors = int(((need[torch.unique(route)] * 4 + 31) // 32).sum())
+    tables = 6 if utils["time_windowed"] else 3
+    n_bytes = (tables * 32 * sectors + n_rows * 4
+               + 4 * n_rows * 8 * 4 + 4 * n_rows * 8 * 4)
+    n_ops = 40 * int(need[route].sum())
     bytes_ms = n_bytes / 3.35e12 * 1e3
     ops_ms = n_ops / 33.5e12 * 1e3
     if bytes_ms >= ops_ms:
@@ -226,7 +214,7 @@ def compare(name, req, ctx, deltas):
     tw = bool(utils["time_windowed"])
     rows_per_island = inputs[1].shape[0] // aux["n_islands"]
     route, warps, smem = dk._kernel_plan(
-        rows_per_island, utils["k_vehicles"], inputs[0].shape[-1] // 6, tw)
+        rows_per_island, utils["k_vehicles"], inputs[0].shape[-1] // 6)
     got = dk._call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
     want = dk._kernel_reference(*inputs, kd=aux["kd"], tw=tw,
                                 rows_per_island=rows_per_island)
@@ -666,9 +654,10 @@ def main(argv):
     # --- 2. parity ----------------------------------------------------------
     # both kernel routes at n=40 (6 vehicles): 2 islands x 512 neighbours
     # (1,536 rows an island, the shared route) and 2 islands x 1 neighbour
-    # (3 rows an island, the direct route); then a route that fills
+    # (3 rows an island, the direct route); then routes that fill
     # route_cap = Rp = 128 (n=128, 4 vehicles, every stop of island 0 on
-    # vehicle 0), where inserts overflow the padded row
+    # vehicle 0), where inserts overflow the padded row, and route_cap =
+    # 300 of Rp = 384 (n=300, 2 vehicles), too long for the shared slab
     max_err = 0
     cases = []
     for tw in (True, False):
@@ -680,6 +669,10 @@ def main(argv):
                             device=DEVICE)
     cases += [(f"n128 full route p={p}", dom, p,
                "shared" if p > 1 else "direct", True) for p in (256, 1)]
+    dom = generate_instance(300, 1, 2, seed=3, time_windowed=True,
+                            device=DEVICE)
+    cases += [(f"n300 full route p={p}", dom, p, "direct", True)
+              for p in (256, 1)]
     for name, dom, p, want_route, full in cases:
         req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(dom,
                                                                     False))
@@ -738,17 +731,6 @@ def main(argv):
 
     # --- 4. kernel timings at both main-path shapes ---------------------------
     utils = freq._delta_utils()
-    parent = None
-    if "--parent" in argv:
-        # the kernel of an earlier checkout, timed in turns with this one
-        # (parent, this, this, parent) on the same inputs
-        src = os.path.join(argv[argv.index("--parent") + 1],
-                           KERNEL_SOURCE)
-        parent = cuda_build.load_library("vrp_delta_parent",
-                                         [src]).gj_vrp_delta
-        parent.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
-        parent.restype = ctypes.c_int
     shapes = []
     for label, s_inputs, s_aux, s_route in (
             ("int-delta", inputs, aux, route),
@@ -757,26 +739,28 @@ def main(argv):
         rows = s_inputs[1].shape[0]
         outs = [torch.empty((rows, 8), dtype=torch.int32, device=DEVICE)
                 for _ in range(4)]
-        this = raw_launcher(dk._library().gj_vrp_delta,
-                            dk._kernel_args(s_inputs, outs, utils, kd, n_isl))
+        args = dk._kernel_args(s_inputs, outs, utils, kd, n_isl)
+        this = raw_launcher(dk._library().gj_vrp_delta, args)
         entry = {"rows": rows, "kernel_route": s_route}
-        if parent is not None:
-            p_outs = [torch.empty_like(o) for o in outs]
-            before = raw_launcher(parent, parent_args(s_inputs, p_outs, utils,
-                                                   kd, n_isl))
-            turns = [graph_ms(fn) for fn in (before, this, this, before)]
-            if not all(torch.equal(a, b) for a, b in zip(outs, p_outs)):
-                fail(f"{label}: the parent kernel's blocks differ")
-            dev_ms = min(turns[1][0], turns[2][0])
-            entry["parent_device_ms"] = min(turns[0][0], turns[3][0])
-            print(f"kernel A/B, {label} [{card}] at {rows} rows, device only,"
-                  f" parent / this / this / parent: "
-                  f"{[round(t[0], 5) for t in turns]} ms", flush=True)
+        # A/B: the same rows on another route, in turns with this one
+        rp = s_inputs[0].shape[-1] // 6
+        if s_route == "shared":
+            alt_name, alt_plan = "direct", (0, dk._DIRECT_WARPS,
+                                            rp * 32 * dk._DIRECT_WARPS)
         else:
-            dev_ms, dev_all = graph_ms(this)
-            print(f"kernel device time, {label} [{card}] at {rows} rows: "
-                  f"{dev_ms:.5f} ms (runs {[round(t, 5) for t in dev_all]})",
-                  flush=True)
+            alt_name, alt_plan = "warp", (2, 8, 8 * 4 * (32 + 5 * rp))
+        a_outs = [torch.empty_like(o) for o in outs]
+        a_args = dk._kernel_args(s_inputs, a_outs, utils, kd, n_isl)
+        alt = raw_launcher(dk._library().gj_vrp_delta,
+                           a_args[:-4] + alt_plan + a_args[-1:])
+        turns = [graph_ms(fn) for fn in (this, alt, alt, this)]
+        if not all(torch.equal(a, b) for a, b in zip(outs, a_outs)):
+            fail(f"{label}: the {alt_name} route's blocks differ")
+        dev_ms = min(turns[0][0], turns[3][0])
+        entry[f"{alt_name}_device_ms"] = min(turns[1][0], turns[2][0])
+        print(f"kernel A/B, {label} [{card}] at {rows} rows, device only, "
+              f"{s_route} / {alt_name} / {alt_name} / {s_route}: "
+              f"{[round(t[0], 5) for t in turns]} ms", flush=True)
         w_ms, w_all = cuda_ms(
             lambda: dk._call_kernel(s_inputs, utils, kd, n_isl))
         p_ms, p_all = cuda_ms(lambda: dk._kernel_reference(

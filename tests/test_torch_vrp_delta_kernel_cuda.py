@@ -2,8 +2,9 @@
 cases of `tests/test_torch_vrp_delta_kernel.py`: change+swap with and
 without time windows, one-variable changes, swaps only, and a ctx advanced
 by accepted winners; and on both of the kernel's routes ("shared" with
-many rows an island, "direct" with few), including a route that fills
-route_cap.
+many rows an island, "direct" with few or with routes too long for the
+shared slab), including routes that fill route_cap (Rp = 128 and 384);
+and the C entry point's refusal of too little shared memory.
 
 Needs an NVIDIA GPU with the CUDA toolkit; skips elsewhere. This file
 imports only the port, so it also runs where jax is not installed:
@@ -105,18 +106,32 @@ def test_kernel_routes_match_reference(cuda, p, route, tw, kd, full_route):
     # n=128 over 4 vehicles with island 0's every stop on vehicle 0, a
     # route that fills route_cap = Rp = 128
     n, k = (128, 4) if full_route else (40, 6)
-    req, ctx, deltas = _inputs(cuda, tw, _CHANGE_SWAP, kd, p=p, n=n, k=k,
+    _check_route(cuda, p, route, tw, kd, n, k, full_route, rp=128)
+
+
+@pytest.mark.parametrize("p", [256, 1])
+@pytest.mark.parametrize("tw", [True, False])
+@pytest.mark.parametrize("kd", [2, 1])
+def test_kernel_long_routes_match_reference(cuda, p, tw, kd):
+    # n=300 over 2 vehicles: route_cap 300, Rp = 384, too long for the
+    # shared slab, so both neighbour counts take the direct route; island
+    # 0's every stop on vehicle 0 fills route_cap, walking slots past 256
+    _check_route(cuda, p, "direct", tw, kd, 300, 2, True, rp=384)
+
+
+def _check_route(device, p, route, tw, kd, n, k, full_route, rp):
+    req, ctx, deltas = _inputs(device, tw, _CHANGE_SWAP, kd, p=p, n=n, k=k,
                                full_route=full_route)
     utils = req._delta_utils()
     inputs, aux = delta_kernel._pre(ctx, deltas, utils)
     rows = inputs[1].shape[0]
     plan = delta_kernel._kernel_plan(rows // aux["n_islands"],
                                      utils["k_vehicles"],
-                                     inputs[0].shape[-1] // 6, tw)
+                                     inputs[0].shape[-1] // 6)
     assert plan[0] == route
+    assert inputs[0].shape[-1] // 6 == rp
     if full_route:
-        assert utils["route_cap"] == inputs[0].shape[-1] // 6 == 128
-        assert int(ctx["len"][0].max()) == 128
+        assert int(ctx["len"][0].max()) == utils["route_cap"] == n
     got = delta_kernel._call_kernel(inputs, utils, aux["kd"],
                                     aux["n_islands"])
     torch.cuda.synchronize()
@@ -125,6 +140,25 @@ def test_kernel_routes_match_reference(cuda, p, route, tw, kd, full_route):
         rows_per_island=rows // aux["n_islands"])
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("p", [256, 1])
+def test_short_shared_memory_refused(cuda, p):
+    # the C entry point recomputes the layout `_kernel_plan` sized and
+    # refuses a launch given fewer bytes of shared memory
+    req, ctx, deltas = _inputs(cuda, True, _CHANGE_SWAP, p=p)
+    utils = req._delta_utils()
+    inputs, aux = delta_kernel._pre(ctx, deltas, utils)
+    outs = [torch.empty((inputs[1].shape[0], 8), dtype=torch.int32,
+                        device=cuda) for _ in range(4)]
+    args = list(delta_kernel._kernel_args(inputs, outs, utils, aux["kd"],
+                                          aux["n_islands"]))
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = delta_kernel._library().gj_vrp_delta
+    assert fn(*args, stream) == 0
+    args[-2] -= 1                          # smem_bytes, one byte short
+    assert fn(*args, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_wrong_dtype_raises(cuda):
