@@ -214,7 +214,7 @@ def compare(name, req, ctx, deltas):
     tw = bool(utils["time_windowed"])
     rows_per_island = inputs[1].shape[0] // aux["n_islands"]
     route, warps, smem = dk._kernel_plan(
-        rows_per_island, utils["k_vehicles"], inputs[0].shape[-1] // 6)
+        rows_per_island, utils["k_vehicles"], inputs[0].shape[-1] // 6, tw)
     got = dk._call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
     want = dk._kernel_reference(*inputs, kd=aux["kd"], tw=tw,
                                 rows_per_island=rows_per_island)
@@ -739,28 +739,12 @@ def main(argv):
         rows = s_inputs[1].shape[0]
         outs = [torch.empty((rows, 8), dtype=torch.int32, device=DEVICE)
                 for _ in range(4)]
-        args = dk._kernel_args(s_inputs, outs, utils, kd, n_isl)
-        this = raw_launcher(dk._library().gj_vrp_delta, args)
-        entry = {"rows": rows, "kernel_route": s_route}
-        # A/B: the same rows on another route, in turns with this one
-        rp = s_inputs[0].shape[-1] // 6
-        if s_route == "shared":
-            alt_name, alt_plan = "direct", (0, dk._DIRECT_WARPS,
-                                            rp * 32 * dk._DIRECT_WARPS)
-        else:
-            alt_name, alt_plan = "warp", (2, 8, 8 * 4 * (32 + 5 * rp))
-        a_outs = [torch.empty_like(o) for o in outs]
-        a_args = dk._kernel_args(s_inputs, a_outs, utils, kd, n_isl)
-        alt = raw_launcher(dk._library().gj_vrp_delta,
-                           a_args[:-4] + alt_plan + a_args[-1:])
-        turns = [graph_ms(fn) for fn in (this, alt, alt, this)]
-        if not all(torch.equal(a, b) for a, b in zip(outs, a_outs)):
-            fail(f"{label}: the {alt_name} route's blocks differ")
-        dev_ms = min(turns[0][0], turns[3][0])
-        entry[f"{alt_name}_device_ms"] = min(turns[1][0], turns[2][0])
-        print(f"kernel A/B, {label} [{card}] at {rows} rows, device only, "
-              f"{s_route} / {alt_name} / {alt_name} / {s_route}: "
-              f"{[round(t[0], 5) for t in turns]} ms", flush=True)
+        this = raw_launcher(dk._library().gj_vrp_delta,
+                            dk._kernel_args(s_inputs, outs, utils, kd, n_isl))
+        dev_ms, dev_all = graph_ms(this)
+        print(f"kernel device time, {label} [{card}] at {rows} rows: "
+              f"{dev_ms:.5f} ms (runs {[round(t, 5) for t in dev_all]})",
+              flush=True)
         w_ms, w_all = cuda_ms(
             lambda: dk._call_kernel(s_inputs, utils, kd, n_isl))
         p_ms, p_all = cuda_ms(lambda: dk._kernel_reference(
@@ -774,7 +758,8 @@ def main(argv):
               f"torch {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]}); "
               f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B, {n_ops} i32 ops)"
               f", {100 * b_ms / dev_ms:.1f}% of it", flush=True)
-        shapes.append({**entry, "device_ms": dev_ms, "wrapper_ms": w_ms,
+        shapes.append({"rows": rows, "kernel_route": s_route,
+                       "device_ms": dev_ms, "wrapper_ms": w_ms,
                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
 
     # --- 5. the sweep path ----------------------------------------------------

@@ -16,10 +16,10 @@
 // bit-equal to the Pallas kernel's.
 //
 // What bounds it on the H100: at the flagship (8 islands x 4096 neighbours
-// x 3 routes = 98,304 rows, Rp = 128) the bytes it must move are 26.5 MB
-// (7.9 us at 3.35 TB/s): the 32 B packed columns of each row in, 128 B of
-// output blocks out, and 1 MB of route tables. The integer work on the
-// valid slots is smaller. What cost the first version (one warp a row,
+// x 3 routes = 98,304 rows, Rp = 128) the bytes it must move are 25.8 MB
+// (7.7 us at 3.35 TB/s): the 32 B packed columns of each row in, 128 B of
+// output blocks out, and the valid prefixes of the routes named. The
+// integer work on the valid slots is smaller. What cost the first version (one warp a row,
 // re-reading its 3 KB of route tables from L2, 11x the needed bytes, and
 // working on all Rp slots whatever the route's length) and what this one
 // does instead:
@@ -30,19 +30,23 @@
 //     length) + 1): the merge shifts survivors by at most KD, the scans
 //     need one padding slot to carry the final `post`, and every slot
 //     beyond reads as the padding's zero;
-//   * one thread a row: it walks the row's merged route slot by slot, a
-//     survivor cursor and two insert positions giving each slot, the scans
-//     running as it goes. Per slot that is a few dozen integer instructions
-//     and no shuffle; a warp-wide row paid for five-step shuffle scans and
-//     warp syncs on every row;
 //   * the "shared" route (many rows an island: TabuSearch's 12,288): about
 //     one block per SM, the blocks split over the islands; a block copies
 //     its island's K routes into shared memory with TMA bulk copies
-//     completing on an mbarrier, and its threads walk them from there;
+//     completing on an mbarrier, and each of its threads walks one row's
+//     merged route slot by slot, a survivor cursor and two insert
+//     positions giving each slot, the scans running as it goes. Per slot
+//     that is a few dozen integer instructions and no shuffle; a warp-wide
+//     row paid for five-step shuffle scans and warp syncs on every row;
 //   * the "direct" route (few rows an island: LateAcceptance and
-//     SimulatedAnnealing's 3, over 512 islands, whose whole ctx is 63 MB;
-//     or routes too long for the slab): each thread walks its route in
-//     device memory, reading only the valid prefix;
+//     SimulatedAnnealing's 3, over 512 islands, whose whole ctx is 63 MB):
+//     one warp a row reads only the first chunks of its route from device
+//     memory in one round trip, lane-strided (slot = 32 * chunk + lane) so
+//     that the prefix sum and cummax are warp scans with a carry, its
+//     merge through a per-warp shared row. The shared route's walk, run
+//     on routes in device memory, measured 5x slower at LateAcceptance's
+//     1,536 rows: a thread's slot-by-slot reads wait on memory one after
+//     another;
 //   * a row's packed columns (sc / ins / pay / el, 32 B each) and its four
 //     output rows move as fully coalesced warp accesses; nothing but the
 //     four output blocks goes back to device memory.
@@ -59,8 +63,7 @@ namespace {
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 24;    // delta_kernel._MAX_WARPS
-constexpr int kDirectWarps = 2;  // delta_kernel._DIRECT_WARPS
-constexpr int kWarpWarps = 8;
+constexpr int kDirectWarps = 8;  // delta_kernel._DIRECT_WARPS
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -111,7 +114,7 @@ struct Args {
   int n_rows, rows_per_island, k_veh, rp, n_stops;
 };
 
-// ---- the warp route: one warp a row, routes read from device memory ----
+// ---- the direct route: one warp a row, routes read from device memory ----
 
 // One row, given its route's six tables (`route`, 6 x rp ints in device
 // memory) and its packed columns in the warp's stash (`pk`: sc, ins, pay,
@@ -347,8 +350,8 @@ __device__ __forceinline__ const int* lane_pack(const Args& a, int lane) {
 }
 
 template <bool TW, int KD>
-__global__ void __launch_bounds__(32 * kWarpWarps)
-    vrp_delta_warp(const Args a) {
+__global__ void __launch_bounds__(32 * kDirectWarps)
+    vrp_delta_direct(const Args a) {
   constexpr int NK = TW ? 5 : 2;
   extern __shared__ __align__(128) int smem[];
   const int lane = threadIdx.x & 31;
@@ -380,7 +383,8 @@ __global__ void __launch_bounds__(32 * kWarpWarps)
   }
 }
 
-// ---- one thread a row: the walk (both routes) ----
+// ---- the shared route: the island's routes in shared memory, one thread
+// a row ----
 
 // The island's routes sit in shared memory 4 words apart beyond their
 // 6 * rp (16 B, so that TMA bulk copies stay aligned): threads of a warp
@@ -388,19 +392,20 @@ __global__ void __launch_bounds__(32 * kWarpWarps)
 // them over the banks.
 constexpr int kRoutePad = 4;  // delta_kernel._ROUTE_PAD
 constexpr int kSharedRp = 128;  // the shared route's Rp
-// a merged slot's origin, one byte: a survivor's base slot minus the
-// merged slot, plus KD (0 .. 2 KD: a survivor moves by at most KD), insert
+// a merged slot's origin, one byte: base slot (< kFromInsert), insert
 // kFromInsert + k, or nothing
 constexpr int kFromInsert = 252;
 constexpr int kFromNothing = 255;
 
 // Bytes of dynamic shared memory a launch's layout indexes
 // (delta_kernel._kernel_plan computes the same): the shared route's slab
-// of routes, then one origin byte a slot for each thread; the direct
-// route's origin bytes alone.
-long long layout_bytes(int route, int k_veh, int rp, int warps) {
-  const long long origins = 32LL * warps * rp;
-  return route == 1 ? 4LL * k_veh * (6 * rp + kRoutePad) + origins : origins;
+// of routes, their lengths and one origin byte a slot for each thread;
+// the direct route's per-warp stash of 32 words and merge row of NK x rp.
+long long layout_bytes(int route, int tw, int k_veh, int rp, int warps) {
+  if (route == 1)
+    return 4LL * k_veh * (6 * rp + kRoutePad) + 4LL * k_veh +
+           32LL * warps * rp;
+  return 4LL * warps * (32 + (tw ? 5 : 2) * rp);
 }
 
 __device__ __forceinline__ int part(const int4& v, int i) {
@@ -464,10 +469,10 @@ __device__ __forceinline__ void fetch_rows(const Args& a, int r0, int last,
 }
 
 // The merged slot x's customer and carried leg, from the walk's record of
-// where each slot came from (`src`, one byte a slot: a survivor's shift,
-// an insert, or nothing).
+// where each slot came from (`src`, one byte a slot: a survivor's base
+// slot, an insert, or nothing).
 template <int KD>
-__device__ __forceinline__ void merged_at(const int* r, int rp,
+__device__ __forceinline__ void merged_at(const int* r, int blen,
                                           const uint8_t* src, int step, int x,
                                           int need, const int (&ps)[KD],
                                           const int (&pay)[8], int& c,
@@ -475,34 +480,32 @@ __device__ __forceinline__ void merged_at(const int* r, int rp,
   c = 0;
   leg = 0;
   if (x < 0 || x >= need) return;  // from `need` on: the padding's zeros
-  const int o = src[x * step];
-  if (o < kFromInsert) {
-    const int s = x + o - KD;
-    c = r[rp + s];
-    leg = r[5 * rp + s];
+  const int s = src[x * step];
+  if (s < blen) {
+    c = r[kSharedRp + s];
+    leg = r[5 * kSharedRp + s];
 #pragma unroll
     for (int k = 0; k < KD; ++k)
       if (s == ps[k]) c = pay[4 * k];
-  } else if (o < kFromNothing) {
-    c = (KD == 2 && o == kFromInsert + 1) ? pay[4 * (KD - 1)] : pay[0];
+  } else if (s >= kFromInsert && s < kFromNothing) {
+    c = (KD == 2 && s == kFromInsert + 1) ? pay[4 * (KD - 1)] : pay[0];
   }
 }
 
-// One row by one thread, its route `r` (six tables of rp slots) in shared
-// or device memory. The merged route is walked slot by slot in order:
+// One row by one thread. The merged route is walked slot by slot in order:
 // survivors keep their order and land at j + shift(j) (strictly
 // increasing), an insert overwrites its slot, and nothing else is nonzero;
 // so a cursor over the survivors, two insert positions and the running
 // scans give every merged slot exactly as the reference's scatter does.
 // Slots from `need` on hold the padding. Each slot's origin is recorded
-// (`src`, every `step` bytes), and the output columns are looked up from
-// it at the end.
+// (`src`), and the output columns are looked up from it at the end.
 template <bool TW, int KD>
-__device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
-                                         const int4 (&pk)[8], uint8_t* src,
-                                         int step, int (&misc)[8],
-                                         int (&uo)[8], int (&vo)[8],
-                                         int (&co)[8]) {
+__device__ __forceinline__ void walk_row(const Args& a, const int* r,
+                                         int blen, const int4 (&pk)[8],
+                                         uint8_t* src, int step,
+                                         int (&misc)[8], int (&uo)[8],
+                                         int (&vo)[8], int (&co)[8]) {
+  constexpr int rp = kSharedRp;
   int sc[8], in[8], pay[8], el[8];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
@@ -524,25 +527,22 @@ __device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
     cs[k] = sc[KD + k];
     iflag[k] = in[k] > 0;
   }
-  // the base length (the first sentinel stop ends the valid prefix) and
-  // the insert positions: survivors ranked before each insert (an exact
-  // count; slots from blen on hold sentinel stops, above every insert's
-  // row)
+  const int length = sc[2 * KD + 2];
+  const int need = min(rp, max(blen + KD, length) + 1);
+
+  // insert positions: survivors ranked before each insert (an exact count;
+  // slots from blen on hold sentinel stops, above every insert's row)
   int ip[KD];
 #pragma unroll
   for (int k = 0; k < KD; ++k) ip[k] = in[2 * KD + k];
-  int blen = 0;
-  for (; blen < rp; ++blen) {
-    const int st = r[blen];
-    if (st >= a.n_stops) break;
+  for (int j = 0; j < blen; ++j) {
+    const int st = r[j];
     bool cleared = false;
 #pragma unroll
-    for (int k = 0; k < KD; ++k) cleared |= blen == cs[k];
+    for (int k = 0; k < KD; ++k) cleared |= j == cs[k];
 #pragma unroll
     for (int k = 0; k < KD; ++k) ip[k] += (!cleared && in[KD + k] >= st);
   }
-  const int length = sc[2 * KD + 2];
-  const int need = min(rp, max(blen + KD, length) + 1);
 
   // the survivor cursor: base slot j, its destination dj and its patched
   // payload; `removed` counts the cleared slots passed (rem_before(j)),
@@ -596,8 +596,7 @@ __device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
       }
     }
     const bool here = dj == d;
-    // beyond blen the cursor stands on the padding's zeros
-    int from = here && j < blen ? j - d + KD : kFromNothing;
+    int from = here ? j : kFromNothing;
     int ct = here ? vct : 0, fl = here ? vfl : 0, ce = here ? vce : 0;
     int leg = here ? vleg : 0;
 #pragma unroll
@@ -630,9 +629,9 @@ __device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
   misc[0] = late_total;
   misc[1] = chain;
   int leg_unused;
-  merged_at<KD>(r, rp, src, step, 0, need, ps, pay, misc[2], leg_unused);
+  merged_at<KD>(r, blen, src, step, 0, need, ps, pay, misc[2], leg_unused);
   if (length >= 1 && length <= rp)
-    merged_at<KD>(r, rp, src, step, length - 1, need, ps, pay, misc[3],
+    merged_at<KD>(r, blen, src, step, length - 1, need, ps, pay, misc[3],
                   leg_unused);
 #pragma unroll
   for (int k = 0; k < KD; ++k) misc[4 + k] = iflag[k] ? ip[k] : -1;
@@ -645,10 +644,10 @@ __device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
       const int k = i < 3 * KD ? i - 2 * KD : i - 3 * KD;
       col = iflag[k] ? ip[k] - (i < 3 * KD ? 1 : 0) : -1;
     }
-    merged_at<KD>(r, rp, src, step, col, need, ps, pay, uo[i], co[i]);
+    merged_at<KD>(r, blen, src, step, col, need, ps, pay, uo[i], co[i]);
     vo[i] = 0;
     if (col >= 0)
-      merged_at<KD>(r, rp, src, step, col + 1, need, ps, pay, vo[i],
+      merged_at<KD>(r, blen, src, step, col + 1, need, ps, pay, vo[i],
                     leg_unused);
   }
 }
@@ -656,7 +655,8 @@ __device__ __forceinline__ void walk_row(const Args& a, const int* r, int rp,
 // The rows of island i lie in blocks [i*G/I, (i+1)*G/I) of the grid, each
 // block a contiguous range of them and one thread a row. A block copies the
 // island's K routes into shared memory with TMA bulk copies completing on
-// an mbarrier (one per route, to its padded place), then walks its rows.
+// an mbarrier (one per route, to its padded place), finds each route's
+// length once, then walks its rows.
 template <bool TW, int KD>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
     vrp_delta_shared(const Args a) {
@@ -665,9 +665,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   constexpr int rp = kSharedRp;
   const int k_veh = a.k_veh;
   const int stride = 6 * rp + kRoutePad;
+  int* blens = smem + k_veh * stride;
   // each thread's slot origins, slot-major so a warp's bytes are adjacent
-  uint8_t* src =
-      reinterpret_cast<uint8_t*>(smem + k_veh * stride) + threadIdx.x;
+  uint8_t* src = reinterpret_cast<uint8_t*>(blens + k_veh) + threadIdx.x;
 
   const int n_isl = a.n_rows / a.rows_per_island;
   const int g = gridDim.x, b = blockIdx.x;
@@ -698,12 +698,27 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   if (row0 < last) fetch_rows(a, row0, last, lane, pk, av);
   mbar_wait(&bar, 0);
 
+  // route lengths: the first sentinel stop, one warp a route
+  for (int q = threadIdx.x >> 5; q < k_veh; q += blockDim.x >> 5) {
+    int len = rp;
+    for (int c0 = 0; c0 < rp; c0 += 32) {
+      const unsigned m =
+          __ballot_sync(kFull, smem[q * stride + c0 + lane] >= a.n_stops);
+      if (m) {
+        len = c0 + __ffs(m) - 1;
+        break;
+      }
+    }
+    if (lane == 0) blens[q] = len;
+  }
+  __syncthreads();
+
   for (; row0 < last; row0 += blockDim.x) {
     const int n = min(32, last - row0);
     int misc[8] = {}, uo[8] = {}, vo[8] = {}, co[8] = {};
     if (lane < n)
-      walk_row<TW, KD>(a, smem + av * stride, rp, pk, src, blockDim.x, misc,
-                       uo, vo, co);
+      walk_row<TW, KD>(a, smem + av * stride, blens[av], pk, src,
+                       blockDim.x, misc, uo, vo, co);
     store_rows(a.out[0], row0, n, lane, misc);
     store_rows(a.out[1], row0, n, lane, uo);
     store_rows(a.out[2], row0, n, lane, vo);
@@ -713,51 +728,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   }
 }
 
-// One thread a row, its route read from device memory: warps take 32
-// consecutive rows at a time over the grid. Before the walk a thread asks
-// for the first two 128 B lines of each of its route's six tables, which
-// hold the valid prefix of a route of up to 64 stops.
-template <bool TW, int KD>
-__global__ void __launch_bounds__(32 * kDirectWarps)
-    vrp_delta_direct(const Args a) {
-  extern __shared__ __align__(128) int smem[];
-  const int rp = a.rp;
-  // each thread's slot origins, slot-major so a warp's bytes are adjacent
-  uint8_t* src = reinterpret_cast<uint8_t*>(smem) + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int step = gridDim.x * blockDim.x;
-  for (int row0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-       row0 < a.n_rows; row0 += step) {
-    const int n = min(32, a.n_rows - row0);
-    int4 pk[8];
-    int av;
-    fetch_rows(a, row0, a.n_rows, lane, pk, av);
-    int misc[8] = {}, uo[8] = {}, vo[8] = {}, co[8] = {};
-    if (lane < n) {
-      const int isl = (row0 + lane) / a.rows_per_island;
-      const int* r = a.ctx + ((size_t)isl * a.k_veh + av) * 6 * rp;
-#pragma unroll
-      for (int f = 0; f < 6; ++f) {
-        if (!TW && f >= 2 && f <= 4) continue;  // ct, floor, ce: unused
-        asm volatile("prefetch.global.L1 [%0];" ::"l"(r + f * rp));
-        asm volatile("prefetch.global.L1 [%0];" ::"l"(r + f * rp + 32));
-      }
-      walk_row<TW, KD>(a, r, rp, pk, src, blockDim.x, misc, uo, vo, co);
-    }
-    store_rows(a.out[0], row0, n, lane, misc);
-    store_rows(a.out[1], row0, n, lane, uo);
-    store_rows(a.out[2], row0, n, lane, vo);
-    store_rows(a.out[3], row0, n, lane, co);
-  }
-}
-
-// ROUTE: 0 direct, 1 shared, 2 warp.
-template <bool TW, int KD, int ROUTE>
+template <bool TW, int KD, bool SHARED>
 cudaError_t launch(const Args& a, int warps, int smem_bytes, int n_sms,
                    cudaStream_t stream) {
-  const void* fn = ROUTE == 1   ? (const void*)vrp_delta_shared<TW, KD>
-                   : ROUTE == 0 ? (const void*)vrp_delta_direct<TW, KD>
-                                : (const void*)vrp_delta_warp<TW, KD>;
+  const void* fn = SHARED ? (const void*)vrp_delta_shared<TW, KD>
+                          : (const void*)vrp_delta_direct<TW, KD>;
   static int smem_set = 48 * 1024;  // the default a block may use
   if (smem_bytes > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -766,7 +741,7 @@ cudaError_t launch(const Args& a, int warps, int smem_bytes, int n_sms,
     smem_set = smem_bytes;
   }
   long long grid;
-  if (ROUTE == 1) {
+  if (SHARED) {
     // about one block per SM, at least one per island, and no more than
     // the island's rows give its threads
     const long long n_isl = a.n_rows / a.rows_per_island;
@@ -774,8 +749,6 @@ cudaError_t launch(const Args& a, int warps, int smem_bytes, int n_sms,
                               (32 * warps);
     grid = n_sms < n_isl * per_isl ? n_sms : n_isl * per_isl;
     if (grid < n_isl) grid = n_isl;
-  } else if (ROUTE == 0) {
-    grid = ((long long)a.n_rows + 32 * warps - 1) / (32 * warps);
   } else {
     grid = ((long long)a.n_rows + warps - 1) / warps;
   }
@@ -787,17 +760,17 @@ cudaError_t launch(const Args& a, int warps, int smem_bytes, int n_sms,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int ROUTE>
+template <bool SHARED>
 cudaError_t dispatch(int tw, int kd, const Args& a, int warps, int smem_bytes,
                      int n_sms, cudaStream_t s) {
   if (tw && kd == 2)
-    return launch<true, 2, ROUTE>(a, warps, smem_bytes, n_sms, s);
+    return launch<true, 2, SHARED>(a, warps, smem_bytes, n_sms, s);
   if (tw && kd == 1)
-    return launch<true, 1, ROUTE>(a, warps, smem_bytes, n_sms, s);
+    return launch<true, 1, SHARED>(a, warps, smem_bytes, n_sms, s);
   if (!tw && kd == 2)
-    return launch<false, 2, ROUTE>(a, warps, smem_bytes, n_sms, s);
+    return launch<false, 2, SHARED>(a, warps, smem_bytes, n_sms, s);
   if (!tw && kd == 1)
-    return launch<false, 1, ROUTE>(a, warps, smem_bytes, n_sms, s);
+    return launch<false, 1, SHARED>(a, warps, smem_bytes, n_sms, s);
   return cudaErrorInvalidValue;
 }
 
@@ -818,24 +791,16 @@ extern "C" int gj_vrp_delta(const int* ctx, const int* av, const int* sc,
                             int smem_bytes, int n_sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0) return 0;
-  const int max_warps = route == 1   ? kMaxWarps
-                        : route == 0 ? kDirectWarps
-                                     : kWarpWarps;
   if (rows_per_island <= 0 || n_rows % rows_per_island || k_veh <= 0 ||
-      rp <= 0 || rp % 128 || route < 0 || route > 2 || warps < 1 ||
-      warps > max_warps || n_sms < 1)
+      rp <= 0 || rp % 128 || route < 0 || route > 1 || warps < 1 ||
+      warps > (route ? kMaxWarps : kDirectWarps) || n_sms < 1 ||
+      smem_bytes < layout_bytes(route, tw, k_veh, rp, warps))
     return (int)cudaErrorInvalidValue;
-  const long long layout =
-      route == 2 ? 4LL * warps * (32 + (tw ? 5 : 2) * rp)
-                 : layout_bytes(route, k_veh, rp, warps);
-  if (smem_bytes < layout) return (int)cudaErrorInvalidValue;
   const Args a = {ctx, av, {sc, ins, pay, el}, {misc, u, v, c}, n_rows,
                   rows_per_island, k_veh, rp, n_stops};
   if (route == 1 && rp == kSharedRp)
-    return (int)dispatch<1>(tw, kd, a, warps, smem_bytes, n_sms, s);
+    return (int)dispatch<true>(tw, kd, a, warps, smem_bytes, n_sms, s);
   if (route == 0)
-    return (int)dispatch<0>(tw, kd, a, warps, smem_bytes, n_sms, s);
-  if (route == 2)
-    return (int)dispatch<2>(tw, kd, a, warps, smem_bytes, n_sms, s);
+    return (int)dispatch<false>(tw, kd, a, warps, smem_bytes, n_sms, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,8 @@ Stages, as in the JAX package:
   `_call_kernel`  the fused route pipeline, one row per (island, neighbour,
                   affected route): `csrc/vrp_delta.cu` on a CUDA tensor, on
                   the route `_kernel_plan` picks by shape ("shared": the
-                  island's routes in shared memory; "direct": each
-                  route read from device memory; a thread a row on both),
+                  island's routes in shared memory, a thread a row;
+                  "direct": a warp a row reading device memory),
                   `_kernel_reference` (plain torch) on a CPU tensor;
   `_post`         the one distance-matrix gather per neighbour, loads, and
                   lexicographic score assembly (f64 rows or i32 delta rows).
@@ -354,25 +354,26 @@ def _kernel_reference(ctx_mat, av_col, sc, ins, pay, el, *, kd, tw,
 _SMEM_LIMIT = 232_448
 _SMEM_RESERVED = 64           # the block's mbarrier (static shared memory)
 _MAX_WARPS = 24
-_DIRECT_WARPS = 2
+_DIRECT_WARPS = 8
 _ROUTE_PAD = 4
 ROUTES = ("direct", "shared")
 
 
-def _kernel_plan(rows_per_island, k, rp):
+def _kernel_plan(rows_per_island, k, rp, tw):
     """(route, warps, smem_bytes) of one kernel launch, a static choice by
-    shape; one thread walks each row on both routes, recording one origin
-    byte a slot in shared memory. "shared": the island has at least K rows
-    to share its K routes, Rp is 128, and one block's shared memory holds
-    the routes (K x (6*rp + 4) i32, padded for the banks) beside the origin
-    bytes of its threads. "direct" otherwise: each row's route is read from
-    device memory, and a small block holds only the origin bytes."""
+    shape. "shared": the island has at least K rows to share its K routes,
+    Rp is 128, and one block's shared memory holds the routes (K x (6*rp +
+    4) i32, padded for the banks), their lengths, and one byte a slot for
+    each of its threads, one thread walking a row. "direct" otherwise: one
+    warp a row, its route read from device memory, its merge in a shared
+    row of NK x rp keys beside a 32-word stash."""
     threads = 32 * _MAX_WARPS
-    smem = 4 * k * (6 * rp + _ROUTE_PAD) + rp * threads
+    smem = 4 * k * (6 * rp + _ROUTE_PAD) + 4 * k + rp * threads
     if (rows_per_island >= k and rp <= 128
             and smem + _SMEM_RESERVED <= _SMEM_LIMIT):
         return "shared", _MAX_WARPS, smem
-    return "direct", _DIRECT_WARPS, rp * 32 * _DIRECT_WARPS
+    nk = 5 if tw else 2
+    return "direct", _DIRECT_WARPS, _DIRECT_WARPS * 4 * (32 + nk * rp)
 
 
 _LIB = {}
@@ -403,7 +404,7 @@ def _kernel_args(inputs, outs, utils, kd, n_islands):
     kveh = utils["k_vehicles"]
     rp = ctx_mat.shape[-1] // 6
     tw = bool(utils["time_windowed"])
-    route, warps, smem = _kernel_plan(nrows // n_islands, kveh, rp)
+    route, warps, smem = _kernel_plan(nrows // n_islands, kveh, rp, tw)
     if dev.index not in _SMS:
         _SMS[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count

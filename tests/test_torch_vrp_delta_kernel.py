@@ -147,31 +147,31 @@ def test_other_devices_raise():
         delta_kernel._call_kernel(meta, utils, 2, 1)
 
 
-@pytest.mark.parametrize("rows_per_island,k,rp,route", [
+@pytest.mark.parametrize("rows_per_island,k,rp,tw,route", [
     # the flagship int-delta shape: 4096 neighbours x 3 routes an island
-    (12_288, 40, 128, "shared"),
+    (12_288, 40, 128, True, "shared"),
+    (12_288, 40, 128, False, "shared"),
     # the LA / SA random-move shape: 1 neighbour x 3 routes an island
-    (3, 40, 128, "direct"),
+    (3, 40, 128, True, "direct"),
     # a slab that cannot fit: K = 40 routes of Rp = 512 slots
-    (12_288, 40, 512, "direct"),
+    (12_288, 40, 512, True, "direct"),
     # n=300 over 2 vehicles (route_cap 300, Rp = 384), many rows an island
-    (768, 2, 384, "direct"),
+    (768, 2, 384, False, "direct"),
     # n=40 over 6 vehicles, 2 islands x 256 neighbours
-    (768, 6, 128, "shared"),
+    (768, 6, 128, True, "shared"),
 ])
-def test_kernel_plan(rows_per_island, k, rp, route):
-    got, warps, smem = delta_kernel._kernel_plan(rows_per_island, k, rp)
+def test_kernel_plan(rows_per_island, k, rp, tw, route):
+    got, warps, smem = delta_kernel._kernel_plan(rows_per_island, k, rp, tw)
     assert got == route
     assert smem + delta_kernel._SMEM_RESERVED <= 232_448
     if route == "shared":
         assert rows_per_island >= k
         assert warps == delta_kernel._MAX_WARPS
         # the island's route tables (122,880 B at the flagship), 16 B of
-        # bank padding a route, and a byte a slot a thread
-        assert smem == 4 * k * 6 * rp + 16 * k + rp * 32 * warps
+        # bank padding a route, the route lengths, a byte a slot a thread
+        assert smem == 4 * k * 6 * rp + 16 * k + 4 * k + rp * 32 * warps
     else:
-        # a byte a slot a thread
         assert warps == delta_kernel._DIRECT_WARPS
-        assert smem == rp * 32 * warps
+        assert smem == warps * 4 * (32 + (5 if tw else 2) * rp)
     if (rows_per_island, k, rp) == (12_288, 40, 128):
-        assert 4 * k * 6 * rp == 122_880 and smem == 221_824
+        assert 4 * k * 6 * rp == 122_880 and smem == 221_984

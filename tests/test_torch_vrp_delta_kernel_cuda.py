@@ -115,7 +115,8 @@ def test_kernel_routes_match_reference(cuda, p, route, tw, kd, full_route):
 def test_kernel_long_routes_match_reference(cuda, p, tw, kd):
     # n=300 over 2 vehicles: route_cap 300, Rp = 384, too long for the
     # shared slab, so both neighbour counts take the direct route; island
-    # 0's every stop on vehicle 0 fills route_cap, walking slots past 256
+    # 0's every stop on vehicle 0 fills route_cap, so a warp reads chunks
+    # beyond the two it loads ahead, up to slot 300
     _check_route(cuda, p, "direct", tw, kd, 300, 2, True, rp=384)
 
 
@@ -127,7 +128,7 @@ def _check_route(device, p, route, tw, kd, n, k, full_route, rp):
     rows = inputs[1].shape[0]
     plan = delta_kernel._kernel_plan(rows // aux["n_islands"],
                                      utils["k_vehicles"],
-                                     inputs[0].shape[-1] // 6)
+                                     inputs[0].shape[-1] // 6, tw)
     assert plan[0] == route
     assert inputs[0].shape[-1] // 6 == rp
     if full_route:
