@@ -5,7 +5,8 @@ NVIDIA GPU.
     python3 chip_smoke.py                  # what CI / the chip check runs
     python3 chip_smoke.py --profile DIR    # also write torch.profiler
                                            # breakdowns of short solves
-                                           # (int-delta, sweep, LA-random)
+                                           # (int-delta, sweep, LA-random,
+                                           # GA, TS-plain, LA-plain)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -43,7 +44,23 @@ Phases, each fatal on failure:
      "sweep" with scored candidates > 0, the random-move forms (512
      islands x 1 move, 100 steps) path "delta" with kernel launches > 0
      (the f64 rows of the delta kernel), and every returned score must
-     equal a plain rescore, bit for bit.
+     equal a plain rescore, bit for bit;
+  9. the generic move library on the card vs on the CPU, bit-equal: the
+     port's draws made once on the CPU from a seed, then `do_move`,
+     `do_move_delta` and `apply_delta` (wide and narrow) with their tabu
+     info for the flagship's variables, 8 islands x 256 candidates, under
+     each single move type and the six-equal mix, mutation multiplier
+     None and 1.0, tabu on;
+ 10. the plain path through `Solver.solve` on the flagship: GA (8 islands
+     x 128, 200 steps) and GA-wide (64 x 128, 50 steps) with the delta
+     cotwin (GA always rescores), TS-plain (8 x 2048, six equal moves, 50
+     steps), LA-plain / SA-plain (512 x 1, change / swap, 100 steps)
+     without delta kernels, and the six-move TabuSearch on the delta
+     cotwin (8 x 2048, kd 16, 50 steps), which must run path "delta" on
+     the f64 `score_delta` with no kernel launch. Each must report its
+     path, and its score must equal a plain rescore, bit for bit.
+
+Cuts: phase 10 runs 50-200 steps per solve (widths as configured).
 
 Phase 3 also holds the kernel's f64 score rows (`_post` of its blocks)
 bit-equal to those of the plain blocks and to the per-neighbour
@@ -73,6 +90,8 @@ SWEEP_TARGETS, SWEEP_WINDOW = 256, 16
 # LateAcceptance / SimulatedAnnealing as `scripts/bench_mh.py` runs them
 LA_SIZE, SA_T0, SA_COOLING = 200, [1000.0, 1000.0, 1.0], 0.9999
 MH_TARGETS, RANDOM_ISLANDS, RANDOM_STEPS = 64, 512, 100
+# the plain path: GeneticAlgorithm's population, TabuSearch's neighbourhood
+GA_POP, PLAIN_NEIGHBOURS = 128, 2048
 DEVICE = "cuda"
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
@@ -501,11 +520,179 @@ def mh_solve(card, name, sweep):
     return launches
 
 
+def move_parity(n_isl=8, n=256, seed=13):
+    """Phase 9: the generic move library's deterministic bodies on the
+    card vs on the CPU, fed the same noise: the port's draws, made once on
+    the CPU from a seed and copied to the card. `do_move` / `do_move_delta`
+    / `apply_delta` outputs and tabu info must be bit-equal (values,
+    shapes and dtypes) under every single move type and the default
+    six-equal mix, at mutation multipliers None and 1.0, with tabu on."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, generate_instance
+    from greyjack_tpu_torch.ops import moves, selection
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    reqs = {dev: ScoreRequester(CotwinBuilder(True, True).build_cotwin(
+        generate_instance(N_CUSTOMERS, N_DEPOTS, K_VEHICLES, seed=SEED,
+                          time_windowed=True, device=dev), False))
+        for dev in (DEVICE, "cpu")}
+    vm_c = reqs["cpu"].variables_manager
+    base = perturbed_bases(reqs["cpu"], n_isl, seed)
+    gens = island_generators(seed, n_isl, "cpu")
+    pop = base[:, None].repeat(1, n, 1)
+    pop[:, 1::2] = torch.stack([vm_c.sample_variables(g, n // 2)
+                                for g in gens])
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    def same(name, w, g):
+        g = g.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            fail(f"move parity: {name} differs on the card "
+                 f"({g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)})")
+
+    singles = [[1.0 if i == j else 0.0 for i in range(6)] for j in range(6)]
+    n_cases, n_wide = 0, 0
+    for probas in singles + [None]:
+        for mult in (None, 1.0):
+            label = f"probas={probas} mult={mult}"
+            cfg_c = moves.MoverConfig(vm_c, TABU_RATE, mult, probas)
+            tabu = cfg_c.init_tabu_state(n_isl)
+            for _ in range(6):
+                grp = torch.randint(0, max(1, cfg_c.n_groups), (n_isl,),
+                                    generator=gens[0])
+                pos = torch.randint(0, cfg_c.max_group_size, (n_isl, 4),
+                                    generator=gens[0], dtype=torch.int32)
+                tabu = selection.tabu_push(
+                    tabu, grp, pos, torch.full((n_isl,), 4, dtype=torch.int32))
+            noise_m = moves.draw_move_noise(gens, n, vm_c, cfg_c,
+                                            torch.float32)
+            noise_d = moves.draw_delta_noise(gens, n, vm_c, cfg_c,
+                                             torch.float32)
+            out = {}
+            for dev, req in reqs.items():
+                vm = req.variables_manager
+                cfg = moves.MoverConfig(vm, TABU_RATE, mult, probas)
+                masks = cfg.tabu_masks(to(tabu, dev))
+                moved, info = moves.do_move(pop.to(dev), to(noise_m, dev), vm,
+                                            cfg, masks)
+                delta, dinfo = moves.do_move_delta(base.to(dev),
+                                                   to(noise_d, dev), vm, cfg,
+                                                   masks)
+                winner = {k: v[:, 0] for k, v in delta.items()}
+                out[dev] = {"moved": moved, "info": info, "delta": delta,
+                            "delta_info": dinfo,
+                            "applied": moves.apply_delta(base.to(dev),
+                                                         winner)}
+            torch.cuda.synchronize()
+            for part in ("moved", "applied"):
+                same(f"{label} {part}", out["cpu"][part], out[DEVICE][part])
+            for part in ("info", "delta", "delta_info"):
+                for k, w in out["cpu"][part].items():
+                    same(f"{label} {part}/{k}", w, out[DEVICE][part][k])
+            if not (out["cpu"]["moved"] != pop).any() \
+                    or not out["cpu"]["delta"]["valid"].any():
+                fail(f"move parity: {label} moved nothing")
+            n_cases += 1
+            n_wide += cfg_c.delta_width > 8
+    print(f"move parity: {n_cases} configurations x {n_isl} islands x {n} "
+          f"candidates (tabu {TABU_RATE}): do_move candidates + info, "
+          f"do_move_delta deltas + info, apply_delta ({n_wide} wide, "
+          f"{n_cases - n_wide} narrow) bit-equal, card vs CPU", flush=True)
+
+
+def plain_agent(label, steps):
+    """The agents of phase 10, stopping after `steps` steps: GA / GA-wide
+    (`scripts/bench_mh.py:112-121`), TabuSearch with the six equal moves
+    (`:91`'s 2048 neighbours), LA / SA as their random-move forms
+    (`:105-111`)."""
+    from greyjack_tpu_torch.agents import (GeneticAlgorithm, LateAcceptance,
+                                           SimulatedAnnealing, TabuSearch)
+    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    lim = StepsLimit(steps - 1)
+    if label.startswith("GA"):
+        return GeneticAlgorithm(GA_POP, 0.5, 0.05, TABU_RATE, None,
+                                MOVE_PROBAS, 0.1, CHUNK_STEPS, lim)
+    if label.startswith("TS"):
+        return TabuSearch(PLAIN_NEIGHBOURS, TABU_RATE, True, None, None,
+                          CHUNK_STEPS, lim)
+    if label == "LA-plain":
+        return LateAcceptance(LA_SIZE, TABU_RATE, None, MOVE_PROBAS,
+                              CHUNK_STEPS, lim)
+    return SimulatedAnnealing(SA_T0, SA_COOLING, TABU_RATE, None, MOVE_PROBAS,
+                              CHUNK_STEPS, lim)
+
+
+# phase 10: (label, islands, steps, delta cotwin, path)
+PLAIN_SOLVES = [("GA", 8, 200, True, "plain"),
+                ("GA-wide", 64, 50, True, "plain"),
+                ("TS-plain", 8, 50, False, "plain"),
+                ("LA-plain", RANDOM_ISLANDS, 100, False, "plain"),
+                ("SA-plain", RANDOM_ISLANDS, 100, False, "plain"),
+                ("TS-six-move", 8, 50, True, "delta")]
+
+
+def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
+    """Phase 10: one solve of the plain path (or of the six-move delta
+    path) through `Solver.solve` at the flagship's full width: every chunk
+    must report `path`, the returned score must equal a plain rescore, bit
+    for bit, and the six-move delta solve must not launch the delta kernel
+    (kd 16 scores through the f64 `score_delta`)."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    t0 = time.perf_counter()
+    sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
+                       CotwinBuilder(delta_cotwin, True),
+                       plain_agent(label, steps), n_isl, seed=0,
+                       logging_level=SolverLoggingLevels.Silent,
+                       metrics=metrics)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dk._call_kernel.launches
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {path}:
+        fail(f"{label}: the solve ran path(s) {paths}, not {path}")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < steps or recs[-1]["n_alive"] != 0:
+        fail(f"{label}: the solve ran {steps_run} steps")
+    if launches != 0:
+        fail(f"{label}: the solve launched the delta kernel {launches} times")
+    score, start = check_solution(sol, label)
+    summ = metrics.summary()
+    steady = recs[1:]
+    steady_mps = (sum(r["moves"] for r in steady)
+                  / (sum(r["wall_ms"] for r in steady) / 1e3)) if steady else 0
+    per_step = recs[0]["moves"] // (n_isl * recs[0]["steps"])
+    print(f"{label} solve: {steps_run} steps x {n_isl} islands x {per_step} "
+          f"moves in {solve_s:.3f} s, path {path}, delta kernel launches "
+          f"{launches}; greedy start {start} -> best {score} (= plain "
+          f"rescore)", flush=True)
+    print(f"{label} solve rate [{card}]: {summ['moves_per_s']:.1f} scored "
+          f"moves/s over all chunks, {steady_mps:.1f} excluding the first "
+          f"chunk; chunk ms {[r['wall_ms'] for r in recs]}", flush=True)
+
+
 def profile(out_dir, path, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
-    warm-up chunk) of the int-delta, the sweep or the LateAcceptance
-    random-move ("la-random", 512 islands) path, with a labelled range
-    around the step and each of its stages."""
+    warm-up chunk) of the int-delta, the sweep, the LateAcceptance
+    random-move ("la-random", 512 islands), the GeneticAlgorithm ("ga", 8
+    islands x 128), the plain TabuSearch ("ts-plain", 8 islands x 2048,
+    six moves, full rescore) or the plain LateAcceptance ("la-plain", 512
+    islands x 1) path, with a labelled range around the step and each of
+    its stages."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
@@ -513,7 +700,7 @@ def profile(out_dir, path, n_chunks=3):
     from greyjack_tpu_torch.models.vrp import CotwinBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
     from greyjack_tpu_torch.models.vrp import sweep as sw
-    from greyjack_tpu_torch.ops import moves
+    from greyjack_tpu_torch.ops import lexico, moves
     from greyjack_tpu_torch.parallel import IslandRunner
     from greyjack_tpu_torch.score_calculation.score_requesters import (
         ScoreRequester)
@@ -527,17 +714,10 @@ def profile(out_dir, path, n_chunks=3):
         wrapped.launches = getattr(fn, "launches", 0)
         return wrapped
 
-    req = ScoreRequester(CotwinBuilder(True, True).build_cotwin(
+    plain = path in ("ga", "ts-plain", "la-plain")
+    req = ScoreRequester(CotwinBuilder(
+        path not in ("ts-plain", "la-plain"), True).build_cotwin(
         flagship_domain(), False))
-    if path == "la-random":
-        kernel = mh_agent("LA", False, 10 ** 9).build_kernel(req)
-        n_isl, want_path = RANDOM_ISLANDS, "delta"
-    else:
-        kernel = flagship_agent(10 ** 9, path == "sweep").build_kernel(req)
-        n_isl, want_path = N_ISLANDS, path
-    if kernel.path != want_path:
-        fail(f"profile: built path {kernel.path}, not {want_path}")
-    runner = IslandRunner(kernel, n_isl, CHUNK_STEPS)
     if path == "sweep":
         stages = [(sw, "sample_targets", "step.sweep.sample_targets"),
                   (sw, "build_tables", "step.sweep.build_tables"),
@@ -546,23 +726,58 @@ def profile(out_dir, path, n_chunks=3):
                   (sw, "_swap_sweep", "step.sweep.family_c_swap"),
                   (sw, "_select_winner", "step.sweep.lex_select"),
                   (sw, "_exact_rescore", "step.sweep.exact_rescore")]
+    elif plain:
+        # the plain score is a bound method the kernel captures when it is
+        # built: every stage is wrapped before the build
+        stages = [(moves, "island_uniforms", "step.draw"),
+                  (moves, "do_move", "step.move_body"),
+                  # also counts the fix inside the plain score's frames
+                  (req.variables_manager, "fix_all", "step.fix_all"),
+                  (req, "request_score_plain", "step.plain_score"),
+                  (lexico, "lex_sort_scores_with", "step.sort")]
     else:
         stages = [(moves, "move_population_delta", "step.sample"),
                   (dk, "_pre", "step.score._pre"),
                   (dk, "_call_kernel", "step.score.kernel"),
                   (dk, "_post", "step.score._post")]
-    stages += [(req, "update_ctx", "step.update_ctx")]
-    if kernel.prestep is not None:
-        stages += [(kernel, "prestep", "step.tabu_free")]
-    if not kernel.self_gating:
-        stages += [(agent_base, "mask_state", "step.mask_state")]
-    stages += [(kernel, "step", "step (whole)"),
-               (kernel, "refresh", "chunk.refresh"),
-               (runner, "_migrate", "chunk.migrate")]
+    if not plain:
+        stages += [(req, "update_ctx", "step.update_ctx")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for obj, attr, name in stages:
         setattr(obj, attr, labelled(name, getattr(obj, attr)))
     try:
+        if path == "la-random":
+            kernel = mh_agent("LA", False, 10 ** 9).build_kernel(req)
+            n_isl, want_path = RANDOM_ISLANDS, "delta"
+        elif path == "ga":
+            kernel = plain_agent("GA", 10 ** 9).build_kernel(req)
+            n_isl, want_path = N_ISLANDS, "plain"
+        elif path == "ts-plain":
+            kernel = plain_agent("TS-plain", 10 ** 9).build_kernel(req)
+            n_isl, want_path = N_ISLANDS, "plain"
+        elif path == "la-plain":
+            kernel = plain_agent("LA-plain", 10 ** 9).build_kernel(req)
+            n_isl, want_path = RANDOM_ISLANDS, "plain"
+        else:
+            kernel = flagship_agent(10 ** 9, path == "sweep").build_kernel(
+                req)
+            n_isl, want_path = N_ISLANDS, path
+        if kernel.path != want_path:
+            fail(f"profile: built path {kernel.path}, not {want_path}")
+        runner = IslandRunner(kernel, n_isl, CHUNK_STEPS)
+        more = []
+        if kernel.prestep is not None:
+            more += [(kernel, "prestep", "step.tabu_free")]
+        if not kernel.self_gating:
+            more += [(agent_base, "mask_state", "step.mask_state")]
+        more += [(kernel, "step", "step (whole)")]
+        if kernel.refresh is not None:
+            more += [(kernel, "refresh", "chunk.refresh")]
+        more += [(runner, "_migrate", "chunk.migrate")]
+        saved += [(obj, attr, getattr(obj, attr)) for obj, attr, _ in more]
+        for obj, attr, name in more:
+            setattr(obj, attr, labelled(name, getattr(obj, attr)))
+        stages += more
         gens = island_generators(0, n_isl, req.device)
         state = runner.init(gens)
         alive = torch.ones(n_isl, dtype=torch.bool, device=req.device)
@@ -576,7 +791,7 @@ def profile(out_dir, path, n_chunks=3):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        for obj, attr, fn in saved:
+        for obj, attr, fn in reversed(saved):
             setattr(obj, attr, fn)
     ka = prof.key_averages()
     os.makedirs(out_dir, exist_ok=True)
@@ -772,9 +987,15 @@ def main(argv):
     for name in ("LA", "SA"):
         launches += mh_solve(card, name, sweep=False)
 
+    # --- 7. the plain (full-rescore) path -------------------------------------
+    move_parity()
+    for label, n_isl, steps, delta_cotwin, path in PLAIN_SOLVES:
+        plain_solve(card, label, n_isl, steps, delta_cotwin, path)
+
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
-        for path in ("int-delta", "sweep", "la-random"):
+        for path in ("int-delta", "sweep", "la-random", "ga", "ts-plain",
+                     "la-plain"):
             profile(out_dir, path)
 
     flag = shapes[0]

@@ -31,7 +31,8 @@ class MetaheuristicKernel:
     `prestep(state) -> extras` runs once per step for all islands before
     `step`. `path` names the scoring path the kernel runs ("sweep" /
     "int-delta" / "delta"); `moves_per_step` counts scored candidates per
-    island-step (a static lower bound for sweep kernels).
+    island-step (a static lower bound for sweep kernels); "plain" kernels
+    score whole candidates with a full rescore.
 
     `self_gating`: the step reads extras["_active"] (bool[I]) and freezes
     all its own writes for inactive islands. Otherwise the runner keeps an
@@ -109,6 +110,79 @@ def make_score_fn(requester, score_precision=None):
 
         return fn
     return requester.request_score_plain
+
+
+def make_population_score_fn(requester, score_precision=None):
+    """population f[I, P, V] -> f64[I, P, S]: one plain score call over
+    the I·P rows flattened, reshaped back."""
+    score_fn = make_score_fn(requester, score_precision)
+
+    def fn(population):
+        n_isl, p, v = population.shape
+        return score_fn(population.reshape(n_isl * p, v)).reshape(n_isl, p,
+                                                                  -1)
+
+    return fn
+
+
+def plain_init_state(requester, cfg, pop_score_fn, population_size,
+                     sort=False):
+    """`init_state(generators)` of the plain kernels: `population_size`
+    candidates sampled per island from its generator, scored, and — for
+    Population kernels (`sort`) — lexicographically sorted, best first;
+    plus the island's tabu rings."""
+    vm = requester.variables_manager
+
+    def init_state(generators):
+        population = torch.stack([vm.sample_variables(g, population_size)
+                                  for g in generators])           # [I, P, V]
+        scores = pop_score_fn(population)
+        if sort:
+            scores, population = lexico.lex_sort_scores_with(scores,
+                                                             population)
+        state = base_state(population, scores)
+        state["tabu"] = cfg.init_tabu_state(len(generators))
+        return state
+
+    return init_state
+
+
+class PlainMoveStep:
+    """The parts the plain local-search steps (TabuSearch, LateAcceptance,
+    SimulatedAnnealing with a full rescore) share: move every candidate
+    with the generic sampler, fix it, score it in one plain call; after
+    the accept rule, keep the accepted candidate, push the chosen
+    neighbour's touched slots into the tabu rings and refresh the island
+    best. These steps are not self-gating: the runner masks inactive
+    islands."""
+
+    def __init__(self, requester, cfg, score_precision):
+        self.vm = requester.variables_manager
+        self.cfg = cfg
+        self.pop_score_fn = make_population_score_fn(requester,
+                                                     score_precision)
+
+    def propose(self, generators, state, candidates):
+        """(moved f[I, P, V], info, scores f64[I, P, S]) of `candidates`."""
+        moved, info = moves.move_population(generators, candidates, self.vm,
+                                            self.cfg, state["tabu"])
+        moved = self.vm.fix_all(moved)
+        return moved, info, self.pop_score_fn(moved)
+
+    def accept(self, state, moved, scores, accept, info, chosen):
+        """The island's candidate moved f[I, 1, V] with rows f64[I, 1, S]
+        replaces its solution where `accept` (bool[I]); then the tabu push
+        of neighbour `chosen` (int[I]), the island best and the step."""
+        state = dict(state)
+        keep = accept[:, None, None]
+        state["population"] = torch.where(keep, moved, state["population"])
+        state["scores"] = torch.where(keep, scores, state["scores"])
+        if self.cfg.use_tabu:
+            state["tabu"] = moves.update_tabu_from_info(state["tabu"], info,
+                                                        chosen)
+        state = update_top(state)
+        state["step_id"] = state["step_id"] + 1
+        return state
 
 
 def make_delta_score_fn(requester, score_precision=None):

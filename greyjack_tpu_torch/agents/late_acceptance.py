@@ -7,11 +7,11 @@ score is no worse than the oldest of them OR than the current score.
 The deque is a fixed-size ring per island: `buf` f64[I, size, S] with
 `count` and `head` (the next write slot) i32[I].
 
-Ported: the sweep form (the candidate is the sweep winner,
-`models/vrp/sweep.py`) and the delta form (one random move per step,
-scored as an f64 row against the ctx in state). The plain form raises
-NotImplementedError: it needs the generic `move_population` sampler
-(ROADMAP Queue 1 item 5).
+Three forms: the sweep form (the candidate is the sweep winner,
+`models/vrp/sweep.py`), the delta form (one random move per step, scored
+as an f64 row against the ctx in state) and, for cotwins without delta
+kernels, the plain form (one move of the generic sampler, fixed and
+scored by a full rescore).
 """
 
 from __future__ import annotations
@@ -63,6 +63,18 @@ def late_accept(cand, current, ring):
     return lexico.lex_leq(cand, oldest) | lexico.lex_leq(cand, current)
 
 
+def plain_accept(pm, state, moved, scores, info):
+    """The deterministic rest of a plain LateAcceptance step: the moved
+    candidate f[I, 1, V] with score rows f64[I, 1, S] replaces the current
+    one where it is late-accepted, and its score enters the ring."""
+    cand = scores[:, 0]
+    accept = late_accept(cand, state["scores"][:, 0], state["late"])
+    state = dict(state)
+    state["late"] = ring_push_front(state["late"], cand, accept)
+    return pm.accept(state, moved, scores, accept, info,
+                     torch.zeros_like(accept, dtype=torch.int64))
+
+
 class LateAcceptance:
     metaheuristic_kind = "LocalSearch"
     metaheuristic_name = "LateAcceptance"
@@ -101,9 +113,8 @@ class LateAcceptance:
         if self.sweep:
             base.announce_fallback(self, requester, score_precision)
         if not requester.supports_delta:
-            raise NotImplementedError(
-                "plain-score LateAcceptance needs the generic move_population "
-                "sampler, not ported yet (ROADMAP Queue 1 item 5)")
+            return self._build_plain_kernel(requester, cfg, s,
+                                            score_precision)
 
         # delta form: one O(K) delta per step against the ctx in state
         # (`late_acceptance_base.rs:188-241` semantics)
@@ -126,6 +137,28 @@ class LateAcceptance:
 
         return base.MetaheuristicKernel(self, init_state, step, refresh,
                                         path="delta", moves_per_step=1)
+
+    def _build_plain_kernel(self, requester, cfg, s, score_precision=None):
+        """Full-rescore form (`greyjack_tpu/agents/late_acceptance.py:
+        132-163`): the moved, fixed and rescored solution is accepted iff
+        no worse than the ring's oldest entry or the current score."""
+        vm = requester.variables_manager
+        size = self.late_acceptance_size
+        pm = base.PlainMoveStep(requester, cfg, score_precision)
+        plain_init = base.plain_init_state(requester, cfg, pm.pop_score_fn, 1)
+
+        def init_state(generators):
+            state = plain_init(generators)
+            state["late"] = ring_init(len(generators), size, s, vm.device)
+            return state
+
+        def step(generators, state, extras):
+            moved, info, scores = pm.propose(generators, state,
+                                             state["population"])
+            return plain_accept(pm, state, moved, scores, info)
+
+        return base.MetaheuristicKernel(self, init_state, step, path="plain",
+                                        moves_per_step=1)
 
     def _build_sweep_kernel(self, requester, cfg, score_fn, s,
                             score_precision=None):

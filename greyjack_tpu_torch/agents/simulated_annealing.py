@@ -7,11 +7,11 @@ runner (`agent_base.rs:537-552`). Metropolis acceptance uses the product
 over components of exp(-delta_i / T_i) against one f64 uniform per island,
 drawn from that island's generator (`accept_uniforms`).
 
-Ported: the sweep form (the candidate is the sweep winner,
-`models/vrp/sweep.py`) and the delta form (one random move per step,
-scored as an f64 row against the ctx in state). The plain form raises
-NotImplementedError: it needs the generic `move_population` sampler
-(ROADMAP Queue 1 item 5).
+Three forms: the sweep form (the candidate is the sweep winner,
+`models/vrp/sweep.py`), the delta form (one random move per step, scored
+as an f64 row against the ctx in state) and, for cotwins without delta
+kernels, the plain form (one move of the generic sampler, fixed and
+scored by a full rescore).
 """
 
 from __future__ import annotations
@@ -31,6 +31,30 @@ def accept_uniforms(generators, device):
 def accept_proba(cand, current, temp):
     """f64[I]: prod over components of exp(-(cand - current) / T)."""
     return torch.prod(torch.exp(-((cand - current) / temp)), dim=-1)
+
+
+def next_temperature(state, cooling, extras, like):
+    """Geometric cooling with its 1e-7 floor (`:156-165`), or the auto
+    temperature 1 - accomplish rate from the runner's extras."""
+    if cooling is not None:
+        temp = state["temperature"] * cooling
+        return torch.where(temp < 1e-6, 1e-7, temp)
+    return extras["inverted_accomplish_rate"][:, None].expand(like.shape)
+
+
+def plain_accept(pm, state, moved, scores, info, u, cooling, extras):
+    """The deterministic rest of a plain SimulatedAnnealing step, given the
+    moved candidate f[I, 1, V], its rows f64[I, 1, S] and the accept
+    uniforms u f64[I]."""
+    cand = scores[:, 0]
+    temp = next_temperature(state, cooling, extras, cand)
+    current = state["scores"][:, 0]
+    accept = (lexico.lex_leq(cand, current)
+              | (u < accept_proba(cand, current, temp)))
+    state = dict(state)
+    state["temperature"] = temp
+    return pm.accept(state, moved, scores, accept, info,
+                     torch.zeros_like(accept, dtype=torch.int64))
 
 
 class SimulatedAnnealing:
@@ -78,10 +102,8 @@ class SimulatedAnnealing:
         if self.sweep:
             base.announce_fallback(self, requester, score_precision)
         if not requester.supports_delta:
-            raise NotImplementedError(
-                "plain-score SimulatedAnnealing needs the generic "
-                "move_population sampler, not ported yet (ROADMAP Queue 1 "
-                "item 5)")
+            return self._build_plain_kernel(requester, cfg, s, t0, cooling,
+                                            score_precision)
 
         # delta form: one O(K) delta per step against the ctx in state
         # (`simulated_annealing_base.rs:189-233` semantics)
@@ -97,12 +119,7 @@ class SimulatedAnnealing:
         def step(generators, state, extras):
             # not self-gating: the runner masks inactive islands
             winner, info, cand = rm.propose(generators, state)
-            if cooling is not None:
-                temp = state["temperature"] * cooling
-                temp = torch.where(temp < 1e-6, 1e-7, temp)
-            else:
-                temp = extras["inverted_accomplish_rate"][:, None].expand(
-                    cand.shape)
+            temp = next_temperature(state, cooling, extras, cand)
             current = state["scores"][:, 0]
             proba = accept_proba(cand, current, temp)
             u = accept_uniforms(generators, vm.device)
@@ -113,6 +130,31 @@ class SimulatedAnnealing:
 
         return base.MetaheuristicKernel(self, init_state, step, refresh,
                                         path="delta", moves_per_step=1)
+
+    def _build_plain_kernel(self, requester, cfg, s, t0, cooling,
+                            score_precision=None):
+        """Full-rescore form (`greyjack_tpu/agents/simulated_annealing.py:
+        123-162`): the moved, fixed and rescored solution is accepted iff
+        no worse, or with the Metropolis probability at the cooled (or
+        auto) temperature."""
+        vm = requester.variables_manager
+        pm = base.PlainMoveStep(requester, cfg, score_precision)
+        plain_init = base.plain_init_state(requester, cfg, pm.pop_score_fn, 1)
+
+        def init_state(generators):
+            state = plain_init(generators)
+            state["temperature"] = t0.expand(len(generators), s).clone()
+            return state
+
+        def step(generators, state, extras):
+            moved, info, scores = pm.propose(generators, state,
+                                             state["population"])
+            u = accept_uniforms(generators, vm.device)
+            return plain_accept(pm, state, moved, scores, info, u, cooling,
+                                extras)
+
+        return base.MetaheuristicKernel(self, init_state, step, path="plain",
+                                        moves_per_step=1)
 
     def _build_sweep_kernel(self, requester, cfg, score_fn, s, t0, cooling,
                             score_precision=None):

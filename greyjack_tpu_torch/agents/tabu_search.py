@@ -9,8 +9,11 @@ re-scored exactly and accepted iff no worse — and the delta branch —
 neighbours are scored against a ctx carried in state, as i32 delta rows
 (the fused delta kernel) where the model and shape allow, else as f64
 score rows (`ScoreRequester.request_score_delta`). Each applies the winner
-to the chromosome and the ctx. The plain branch (ROADMAP Queue 1 item 5)
-raises NotImplementedError.
+to the chromosome and the ctx — and the plain branch, for cotwins without
+delta kernels: `neighbours_count` copies of the current solution each take
+one move of the generic sampler (`ops/moves.py` `move_population`), are
+fixed and scored by one full rescore, and the best is accepted iff no
+worse.
 """
 
 from __future__ import annotations
@@ -19,6 +22,17 @@ import torch
 
 from greyjack_tpu_torch.agents import base
 from greyjack_tpu_torch.ops import lexico, moves
+
+
+def plain_accept_best(pm, state, moved, scores, info):
+    """The deterministic rest of a plain TabuSearch step: each island's
+    lexicographically best neighbour (lowest index on ties) replaces the
+    current solution iff no worse."""
+    best = lexico.lex_argmin(scores)                                 # [I]
+    best_row = moves.take_one(scores, best)
+    accept = lexico.lex_leq(best_row, state["scores"][:, 0])
+    return pm.accept(state, moves.take_one(moved, best)[:, None],
+                     best_row[:, None], accept, info, best)
 
 
 class TabuSearch:
@@ -66,9 +80,7 @@ class TabuSearch:
         if self.sweep:
             base.announce_fallback(self, requester, score_precision)
         if not requester.supports_delta:
-            raise NotImplementedError(
-                "plain-score TabuSearch needs the generic move_population "
-                "sampler, not ported yet (ROADMAP Queue 1 item 5)")
+            return self._build_plain_kernel(requester, cfg, score_precision)
         delta_score_fn = base.make_delta_score_fn(requester, score_precision)
         # accept-boundary rounding keeps the int path live under
         # score_precision (None when unrounded: exact delta <= 0 compare)
@@ -135,14 +147,34 @@ class TabuSearch:
                 state["step_id"].dtype)
             return state
 
-        calc = requester.cotwin.score_calculator
+        # the i32 rows serve this delta width (the VRP kernel: kd <= 2);
+        # wider moves (the six-move mix, kd 16) score as f64 rows. The free
+        # lists feed the narrow sampler only
         has_ints = (precision_ok
-                    and calc.delta_score_batch_ints_fn is not None
-                    and calc.delta_ctx_score_fn is not None)
+                    and requester.delta_ints_eligible(cfg.delta_width))
         return base.MetaheuristicKernel(
             self, init_state, step, refresh, self_gating=True,
-            prestep=prestep, path="int-delta" if has_ints else "delta",
-            moves_per_step=n)
+            prestep=prestep if cfg.narrow else None,
+            path="int-delta" if has_ints else "delta", moves_per_step=n)
+
+    def _build_plain_kernel(self, requester, cfg, score_precision=None):
+        """Full-rescore local search (`greyjack_tpu/agents/tabu_search.py:
+        194-223`): the neighbourhood is `neighbours_count` moved copies of
+        the current solution; the lexicographically best is accepted iff
+        no worse, and its touched slots enter the tabu rings."""
+        n = self.neighbours_count
+        pm = base.PlainMoveStep(requester, cfg, score_precision)
+        init_state = base.plain_init_state(requester, cfg, pm.pop_score_fn, 1)
+
+        def step(generators, state, extras):
+            current = state["population"][:, 0]                    # [I, V]
+            neighbours = current[:, None].expand(current.shape[0], n,
+                                                 current.shape[1])
+            moved, info, scores = pm.propose(generators, state, neighbours)
+            return plain_accept_best(pm, state, moved, scores, info)
+
+        return base.MetaheuristicKernel(self, init_state, step, path="plain",
+                                        moves_per_step=n)
 
     def _build_sweep_kernel(self, requester, cfg, score_fn,
                             score_precision=None):

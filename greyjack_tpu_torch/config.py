@@ -17,6 +17,7 @@ INT_DTYPE = torch.int32
 MAX_MOVE_SIZE = 8
 
 # scramble windows are U{3..6} in the reference (`mover.rs:287`)
+SCRAMBLE_MIN = 3
 SCRAMBLE_MAX = 6
 
 # static width of a move in delta form

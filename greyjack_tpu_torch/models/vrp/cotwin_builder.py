@@ -1017,7 +1017,8 @@ class CotwinBuilder(CotwinBuilderBase):
                                          int_scales=[1.0, 1.0, 1000.0])
             calculator.set_delta_batch_kernel(
                 delta_kernel.score_delta_batch,
-                delta_kernel.score_delta_batch_ints)
+                delta_kernel.score_delta_batch_ints,
+                eligible=delta_kernel.eligible_width)
             calculator.set_sweep_module(sweep)
         cotwin.add_score_calculator(calculator)
         return cotwin

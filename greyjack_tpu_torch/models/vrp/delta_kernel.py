@@ -56,10 +56,14 @@ def _route_pad(route_cap):
 
 
 def eligible(utils, deltas):
+    """Static eligibility of the fused kernel for these deltas."""
+    return eligible_width(utils, deltas["positions"].shape[-1])
+
+
+def eligible_width(utils, kd):
     """Static eligibility of the fused kernel: narrow deltas (kd <= 2), i32
     accumulation bounds, and a route cap the kernel's per-warp shared row
     holds (<= 512 slots)."""
-    kd = deltas["positions"].shape[-1]
     return (kd <= 2 and utils["acc_dtype"] == torch.int32
             and utils["route_cap"] <= 512)
 

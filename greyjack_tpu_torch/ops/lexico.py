@@ -45,6 +45,40 @@ def lex_argmin(scores):
     return torch.argmax(eligible.to(torch.int32), dim=-1)
 
 
+def lex_sort_order(scores):
+    """int64[..., N]: the stable ascending lexicographic order of the rows
+    of `scores` [..., N, S] (`greyjack_tpu/ops/lexico.py:60-69`). torch has
+    no multi-key sort, so stable sorts are chained from the last key to
+    the first."""
+    n = scores.shape[-2]
+    order = torch.arange(n, device=scores.device).expand(
+        scores.shape[:-1]).contiguous()
+    for i in reversed(range(scores.shape[-1])):
+        key = torch.gather(scores[..., i], -1, order)
+        idx = torch.sort(key, dim=-1, stable=True).indices
+        order = torch.gather(order, -1, idx)
+    return order
+
+
+def take_rows(x, idx):
+    """x[..., N, *rest] -> x[..., idx, *rest] for idx int[..., M]: rows
+    gathered along the axis after idx's leading axes."""
+    d = idx.dim() - 1
+    rest = x.shape[d + 1:]
+    full = idx.reshape(idx.shape + (1,) * len(rest)).expand(
+        idx.shape + rest)
+    return torch.gather(x, d, full.long())
+
+
+def lex_sort_scores_with(scores, *payloads):
+    """Sort the rows of `scores` [..., N, S] lexicographically ascending,
+    carrying payloads with the same leading [..., N] axes. Returns
+    (sorted_scores, *sorted_payloads)."""
+    order = lex_sort_order(scores)
+    return (take_rows(scores, order),) + tuple(take_rows(p, order)
+                                                for p in payloads)
+
+
 def stub_score_row(s, dtype=torch.float64, device=None):
     """The reference's f64::MAX-1 sentinel (`simple_score.rs:60-64`)."""
     return torch.full((s,), sys.float_info.max - 1.0, dtype=dtype,

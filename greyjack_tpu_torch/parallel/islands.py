@@ -7,12 +7,17 @@ Islands are a leading tensor axis [I, ...]; one chunk advances every island
 one: island i receives from island i-1), the lexicographic global-best
 reduce with adoption, and the per-chunk `refresh`. Dead islands are frozen
 by their step budget but keep relaying: a self-gating kernel freezes them
-itself, any other kernel's step is followed by `mask_state`. Ported: the
-LocalSearch arm, with the LateAcceptance ring in migration and adoption;
-the Population arm and multi-device meshes raise.
+itself, any other kernel's step (every plain kernel) is followed by
+`mask_state`. Two arms: LocalSearch (one individual an island; the
+LateAcceptance ring in migration and adoption) and Population (an island's
+top `migrants_count` replace its ring successor's worst where no worse,
+then a re-sort; no adoption of the global best). Multi-device meshes
+raise.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,15 +33,16 @@ class IslandRunner:
             raise NotImplementedError(
                 "multi-device islands are not ported yet (ROADMAP Queue 1 "
                 "item 9)")
-        if kernel.metaheuristic_kind != "LocalSearch":
-            raise NotImplementedError(
-                f"{kernel.metaheuristic_kind} islands are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         self.kernel = kernel
         self.n_islands = int(n_islands)
         self.migration_frequency = int(migration_frequency)
         self.compare_to_global = compare_to_global
         self.kind = kernel.metaheuristic_kind
+        if self.kind == "Population":
+            self.migrants_count = max(
+                1, math.ceil(kernel.migration_rate * kernel.population_size))
+        else:
+            self.migrants_count = 1
 
     def init(self, generators):
         """Initial run state from one generator per island."""
@@ -101,11 +107,39 @@ class IslandRunner:
         return state
 
     def _migrate(self, islands):
-        """Ring exchange + acceptance (`agent_base.rs:322-444`), LocalSearch
-        arm: each island takes its ring predecessor's individual when it is
-        no worse — for LateAcceptance, no worse than the ring's oldest
-        entry or the current score, and the migrant's score is pushed
-        (`agent_base.rs:416-428`)."""
+        """Ring exchange + acceptance (`agent_base.rs:322-444`)."""
+        if self.kind == "Population":
+            return self._migrate_population(islands)
+        return self._migrate_local(islands)
+
+    def _migrate_population(self, islands):
+        """Population arm (`greyjack_tpu/parallel/islands.py:235-249`):
+        island i's worst k (rows P-k..P-1) each take the matching one of
+        its ring predecessor's best k (rows 0..k-1) where that migrant is
+        no worse, then the island re-sorts."""
+        k = self.migrants_count
+        pop = islands["population"]                           # [I, P, V]
+        scores = islands["scores"]                            # [I, P, S]
+        p = pop.shape[1]
+        mig_v = torch.roll(pop[:, :k], 1, dims=0)
+        mig_s = torch.roll(scores[:, :k], 1, dims=0)
+        accept = lexico.lex_leq(mig_s, scores[:, p - k:])[..., None]
+        pop = torch.cat([pop[:, :p - k],
+                         torch.where(accept, mig_v, pop[:, p - k:])], dim=1)
+        scores = torch.cat([scores[:, :p - k],
+                            torch.where(accept, mig_s, scores[:, p - k:])],
+                           dim=1)
+        scores, pop = lexico.lex_sort_scores_with(scores, pop)
+        islands = dict(islands)
+        islands["population"] = pop
+        islands["scores"] = scores
+        return agent_base.update_top(islands)
+
+    def _migrate_local(self, islands):
+        """LocalSearch arm: each island takes its ring predecessor's
+        individual when it is no worse — for LateAcceptance, no worse than
+        the ring's oldest entry or the current score, and the migrant's
+        score is pushed (`agent_base.rs:416-428`)."""
         pop = islands["population"]                           # [I, 1, V]
         scores = islands["scores"]                            # [I, 1, S]
         mig_v = torch.roll(pop[:, 0], 1, dims=0)
@@ -136,8 +170,9 @@ class IslandRunner:
         g_v = cand_v[best]
         g_s = cand_s[best]
 
-        if self.compare_to_global:
-            # adopt the global best where strictly better than the island top
+        if self.kind == "LocalSearch" and self.compare_to_global:
+            # adopt the global best where strictly better than the island
+            # top; Population islands never adopt
             adopt = lexico.lex_less(g_s, islands["top_score"])  # [I]
             islands = dict(islands)
             if "late" in islands:

@@ -94,6 +94,7 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         self.delta_ctx_score_fn = None
         self.delta_score_batch_fn = None
         self.delta_score_batch_ints_fn = None
+        self.delta_batch_eligible_fn = None
         self.delta_ctx_ints_fn = None
         self.score_int_scales = None
         self.sweep_module = None
@@ -111,13 +112,15 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
             self.score_int_scales = [float(s) for s in int_scales]
 
     def set_delta_batch_kernel(self, score_delta_batch,
-                               score_delta_batch_ints=None):
+                               score_delta_batch_ints=None, eligible=None):
         """Register a whole-neighbourhood scorer `(ctx, deltas[I, P, K],
         utils) -> f64[I, P, S] | None` (None: statically ineligible for
-        this shape) and optionally its integer-delta twin returning i32
-        delta rows order-equivalent to the f64 rows."""
+        this shape), optionally its integer-delta twin returning i32
+        delta rows order-equivalent to the f64 rows, and the static gate
+        `eligible(utils, kd)` both answer by."""
         self.delta_score_batch_fn = score_delta_batch
         self.delta_score_batch_ints_fn = score_delta_batch_ints
+        self.delta_batch_eligible_fn = eligible
 
     def set_sweep_module(self, module):
         """Register a sweep-neighbourhood module (dense value-sweep scoring,

@@ -179,6 +179,17 @@ class ScoreRequester:
             return None
         return ints_fn(ctx, deltas, self._delta_utils())
 
+    def delta_ints_eligible(self, kd):
+        """Whether `request_score_delta_ints` serves kd-wide deltas: the
+        model registered the integer rows and its eligibility gate (if
+        any) passes this width. A host-side static."""
+        calc = self.cotwin.score_calculator
+        if (getattr(calc, "delta_score_batch_ints_fn", None) is None
+                or getattr(calc, "delta_ctx_score_fn", None) is None):
+            return False
+        gate = getattr(calc, "delta_batch_eligible_fn", None)
+        return gate is None or bool(gate(self._delta_utils(), kd))
+
     def ctx_score_row(self, ctx):
         """f64[I, S] score of each island's base candidate."""
         calc = self.cotwin.score_calculator

@@ -55,6 +55,11 @@ class VariablesManager:
         self.frozen_mask_np = frozen
         self.has_initial_mask = dev(has_initial)
         self.initial_values = dev(initial, fd)
+        # packed (lower, upper, discrete) [V, 3]: one per-position gather in
+        # the generic delta sampler
+        self.bounds_pack = torch.stack(
+            [self.lower_bounds, self.upper_bounds,
+             self.discrete_mask.to(fd)], dim=-1)
 
         # --- semantic groups (insertion order; frozen vars excluded) ------
         groups: dict[str, list] = {}
@@ -96,6 +101,15 @@ class VariablesManager:
         disc = torch.minimum(disc, self.upper_bounds)
         sampled = torch.where(self.discrete_mask, disc, cont)
         return torch.where(self.has_initial_mask, self.initial_values, sampled)
+
+    def random_column_values(self, generator, shape=()):
+        """U[lower, upper) per variable, discrete ones too (the reference's
+        `get_column_random_value`, `variables_manager.rs:115-117`; a later
+        `fix_all` rints), drawn from `generator`: f[*shape, V]."""
+        u = torch.rand(tuple(shape) + (self.variables_count,),
+                       generator=generator, dtype=self.float_dtype,
+                       device=self.device)
+        return self.lower_bounds + u * (self.upper_bounds - self.lower_bounds)
 
     def fix_all(self, values):
         """Clamp to bounds, rint discrete columns, pin frozen columns to their

@@ -8,8 +8,11 @@ islands as one batch on that device, and loops over chunks of
 observers and metrics, until every island has terminated. Each island draws
 from its own `torch.Generator`, seeded from `seed`.
 
-Not ported yet: `mesh`, `checkpoint_path` / `resume_from` and `profile_dir`
-(setting any of them raises).
+LocalSearch agents (TabuSearch, LateAcceptance, SimulatedAnnealing) run one
+individual an island; Population agents (GeneticAlgorithm) run
+`population_size` an island, migrate `migration_rate` of it, and count
+`population_size` moves per island-step. Not ported yet: LSHADE, `mesh`,
+`checkpoint_path` / `resume_from` and `profile_dir` (each raises).
 """
 
 from __future__ import annotations
@@ -83,6 +86,11 @@ class Solver:
             if value is not None:
                 raise NotImplementedError(
                     f"Solver.solve({name}=...) is not ported yet")
+
+        if getattr(agent_builder, "metaheuristic_name", None) == "LSHADE":
+            raise NotImplementedError(
+                "LSHADE is not ported yet (ROADMAP Queue 1 item 6, with the "
+                "mixed-int model)")
 
         # --- domain dispatch (`solver.rs:106-119`) ------------------------
         if initial_solution is None:

@@ -170,3 +170,110 @@ def assert_tree_equal(want, got, prefix=""):
             assert_tree_equal(w, g, f"{prefix}[{i}]")
     else:
         assert_leaf_equal(want, got, prefix)
+
+
+def _jax_group_leaves(k_group, k_count, jvm, jcfg):
+    import jax.numpy as jnp
+
+    g = jax.random.randint(k_group, (), 0, max(1, jcfg.n_groups))
+    if jcfg.rates_zero:
+        c_raw = jnp.zeros((), jnp.int32)
+    else:
+        c_raw = jnp.sum(
+            jax.random.uniform(k_count, (jvm.variables_count,), jnp.float32)
+            < jcfg.group_rates[g].astype(jnp.float32)).astype(jnp.int32)
+    return {"g": g, "c_raw": c_raw}
+
+
+def jax_move_noise(key, jvm, jcfg, dtype):
+    """The noise leaves the JAX package's `do_move` draws from `key`, in
+    the order of its key split (`greyjack_tpu/ops/moves.py:198-234`)."""
+    import jax.numpy as jnp
+    from greyjack_tpu import config as jconfig
+
+    (k_move, k_group, k_count, k_sel, k_len, k_start, k_perm, k_res) = \
+        jax.random.split(key, 8)
+    out = {"u_move": jax.random.uniform(k_move, (), dtype=jnp.float64)}
+    out.update(_jax_group_leaves(k_group, k_count, jvm, jcfg))
+    out["gumbel"] = jax.random.gumbel(k_sel, (jcfg.max_group_size,),
+                                      dtype=jnp.float32)
+    out["k_scr"] = jax.random.randint(k_len, (), jconfig.SCRAMBLE_MIN,
+                                      jconfig.SCRAMBLE_MAX + 1)
+    out["u_start"] = jax.random.uniform(k_start, (), dtype=jnp.float32)
+    out["perm_gumbel"] = jax.random.gumbel(k_perm, (jconfig.SCRAMBLE_MAX,),
+                                           dtype=jnp.float32)
+    out["u_res"] = jax.random.uniform(k_res, (jconfig.MAX_MOVE_SIZE,),
+                                      dtype=dtype)
+    return out
+
+
+def jax_delta_noise(key, jvm, jcfg, dtype):
+    """The noise leaves the JAX package's `do_move_delta` draws from `key`
+    (`greyjack_tpu/ops/moves.py:346-486`), for the enabled moves only."""
+    import jax.numpy as jnp
+    from greyjack_tpu import config as jconfig
+
+    enabled = set(jcfg.enabled)
+    kd = jcfg.delta_width
+    (k_move, k_group, k_count, k_sel, k_len, k_start, k_perm, k_res) = \
+        jax.random.split(key, 8)
+    out = {}
+    if len(jcfg.enabled) > 1:
+        out["u_move"] = jax.random.uniform(k_move, (), dtype=jnp.float64)
+    out.update(_jax_group_leaves(k_group, k_count, jvm, jcfg))
+    if jcfg.k_sel == 2:
+        ka, kb = jax.random.split(k_sel)
+        shape = (4,) if jcfg.use_tabu else ()
+        out["u_a"] = jax.random.uniform(ka, shape, dtype=jnp.float32
+                                        ).reshape(-1)
+        out["u_b"] = jax.random.uniform(kb, shape, dtype=jnp.float32
+                                        ).reshape(-1)
+    else:
+        out["gumbel"] = jax.random.gumbel(k_sel, (jcfg.max_group_size,),
+                                          dtype=jnp.float32)
+    if 3 in enabled:
+        out["k_scr"] = jax.random.randint(k_len, (), jconfig.SCRAMBLE_MIN,
+                                          jconfig.SCRAMBLE_MAX + 1)
+        out["u_start"] = jax.random.uniform(k_start, (), dtype=jnp.float32)
+        out["perm_gumbel"] = jax.random.gumbel(
+            jax.random.fold_in(k_perm, 1), (jconfig.SCRAMBLE_MAX,),
+            dtype=jnp.float32)
+    if {4, 5} & enabled:
+        k_off, k_sign = jax.random.split(k_perm)
+        out["off"] = jax.random.randint(k_off, (), 1, kd)
+        out["sign"] = jax.random.bernoulli(k_sign, 0.5)
+    if 0 in enabled:
+        out["u_res"] = jax.random.uniform(k_res, (kd,), dtype=dtype)
+    return out
+
+
+def jax_population_noise(keys_by_island, fn, jvm, jcfg, dtype, n):
+    """Port-layout noise leaves [I, n, ...] (torch, CPU) of `fn`
+    (`jax_move_noise` / `jax_delta_noise`) for each island's key, split
+    into n per-candidate keys as `move_population(_delta)` splits them."""
+    per_isl = []
+    for key in keys_by_island:
+        keys = jax.random.split(key, n)
+        per_isl.append(jax.vmap(lambda k: fn(k, jvm, jcfg, dtype))(keys))
+    tree = {k: np.stack([np.asarray(t[k]) for t in per_isl])
+            for k in per_isl[0]}
+    return from_numpy_tree(tree, device="cpu")
+
+
+def plain_pair(tw=True, n=30, d=2, kveh=5, seed=3, greedy=False):
+    """(jax_requester, torch_requester) of one instance whose cotwins have
+    no delta kernels (`CotwinBuilder(False, greedy)`), so every agent takes
+    its plain, full-rescore branch."""
+    jd = j_generate(n, d, kveh, seed=seed, time_windowed=tw)
+    td = t_generate(n, d, kveh, seed=seed, time_windowed=tw, device="cpu")
+    jreq = JScoreRequester(JCotwinBuilder(False, greedy).build_cotwin(jd,
+                                                                      False))
+    treq = TScoreRequester(TCotwinBuilder(False, greedy).build_cotwin(td,
+                                                                      False))
+    return jreq, treq
+
+
+def stack_states(states):
+    """Per-island JAX states -> one numpy tree with a leading island axis."""
+    return jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                        *states)

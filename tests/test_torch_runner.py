@@ -124,9 +124,11 @@ def i64_tabu():
 
 def test_tabu_f64_delta_step_matches_jax(monkeypatch, i64_tabu):
     jreq, treq, jk, tk, st = i64_tabu
-    # the calculator registers int rows, so the label stays "int-delta";
-    # the kernel turns the shape down at run time and the step scores f64
-    assert jk.path == tk.path == "int-delta"
+    # the calculator registers int rows, but the kernel turns this
+    # instance down (i64 accumulation) and the step scores f64 rows: the
+    # port's label says so ("delta"); the JAX package's stays "int-delta"
+    assert jk.path == "int-delta"
+    assert tk.path == "delta"
     assert treq._delta_utils()["acc_dtype"] == torch.int64
     vm = jreq.variables_manager
     jcfg = jmoves.MoverConfig(vm, 0.2, None, _PROBAS)

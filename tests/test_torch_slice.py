@@ -59,6 +59,9 @@ def test_port_imports_no_jax():
             "import greyjack_tpu_torch.models.vrp.delta_kernel\n"
             "import greyjack_tpu_torch.models.vrp.sweep\n"
             "import greyjack_tpu_torch.interop, greyjack_tpu_torch.cuda_build\n"
+            "import greyjack_tpu_torch.agents.genetic_algorithm\n"
+            "import greyjack_tpu_torch.ops.moves, greyjack_tpu_torch.ops.selection\n"
+            "import greyjack_tpu_torch.ops.lexico, greyjack_tpu_torch.parallel\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'greyjack_tpu' not in sys.modules\n"
             "print('ok')\n")
