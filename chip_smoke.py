@@ -6,7 +6,8 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile DIR    # also write torch.profiler
                                            # breakdowns of short solves
                                            # (int-delta, sweep, LA-random,
-                                           # GA, TS-plain, LA-plain)
+                                           # GA, TS-plain, LA-plain, LSHADE,
+                                           # mixed-int LSHADE)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -56,11 +57,39 @@ Phases, each fatal on failure:
      cotwin (GA always rescores), TS-plain (8 x 2048, six equal moves, 50
      steps), LA-plain / SA-plain (512 x 1, change / swap, 100 steps)
      without delta kernels, and the six-move TabuSearch on the delta
-     cotwin (8 x 2048, kd 16, 50 steps), which must run path "delta" on
-     the f64 `score_delta` with no kernel launch. Each must report its
-     path, and its score must equal a plain rescore, bit for bit.
+     cotwin (8 x 2048, kd 16, 50 steps), which must report the JAX
+     package's label "int-delta" and score the f64 `score_delta` rows
+     with no kernel launch. Each must report its path, and its score must
+     equal a plain rescore, bit for bit;
+ 11. LSHADE on the flagship in `scripts/bench_mh.py`'s configuration
+     (population 128, archive 128, one forced column, change / swap):
+     first one body step on the card vs on the CPU from the same state and
+     the same draws (made once on the CPU): integer leaves, population,
+     scores, archive and `arc_cr` bit-equal, `arc_f` (through `tan`)
+     within 4 ulp, the adaptive memories within a relative 1e-12; then
+     LSHADE (8 islands, 200 steps) and LSHADE-wide (64 islands, 50 steps)
+     solves: path "plain", no delta-kernel launch, every island's archive
+     count <= 128 after every chunk, the score equal to a plain rescore,
+     bit for bit;
+ 12. the mixed-int model (rastrigin, 50 floats + 50 ints, change moves
+     only, tabu rate 0): GA, LSHADE and TabuSearch with 128 random
+     neighbours, 8 islands x 200 steps each: path "plain", the best below
+     the best of the initial populations, and the score equal to a plain
+     rescore of the returned solution on the card (bit for bit; where the
+     f64 sum over the 100 variables is not, within a relative 1e-12, and
+     the line says which held);
+ 13. `exact_fp_scores=True` on the flagship: the exact plain score of
+     1,024 rows on the card equals the CPU's, bit for bit, and so does the
+     fast walk's (its time beside the exact fold's); GA (8 x 128, 20
+     steps) runs path "plain" and its score equals an exact plain rescore,
+     bit for bit;
+ 14. checkpoint / resume on the int-delta flagship (TabuSearch 4096
+     neighbours, 8 islands, 40 steps): a solve stopped when chunk 3's
+     metrics land (its checkpoint holds chunks 0-2) and resumed from the
+     file ends with the uninterrupted solve's score and values, bit for
+     bit; the delta kernel launches in both runs.
 
-Cuts: phase 10 runs 50-200 steps per solve (widths as configured).
+Cuts: phases 10-14 run 20-200 steps per solve (widths as configured).
 
 Phase 3 also holds the kernel's f64 score rows (`_post` of its blocks)
 bit-equal to those of the plain blocks and to the per-neighbour
@@ -92,6 +121,9 @@ LA_SIZE, SA_T0, SA_COOLING = 200, [1000.0, 1000.0, 1.0], 0.9999
 MH_TARGETS, RANDOM_ISLANDS, RANDOM_STEPS = 64, 512, 100
 # the plain path: GeneticAlgorithm's population, TabuSearch's neighbourhood
 GA_POP, PLAIN_NEIGHBOURS = 128, 2048
+# LSHADE (population = archive = 128) and the mixed-int model
+# (`scripts/bench_mh.py:112-142`, `:177-179`)
+LSHADE_POP, MIXED_FLOATS, MIXED_INTS = 128, 50, 50
 DEVICE = "cuda"
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
@@ -635,7 +667,7 @@ PLAIN_SOLVES = [("GA", 8, 200, True, "plain"),
                 ("TS-plain", 8, 50, False, "plain"),
                 ("LA-plain", RANDOM_ISLANDS, 100, False, "plain"),
                 ("SA-plain", RANDOM_ISLANDS, 100, False, "plain"),
-                ("TS-six-move", 8, 50, True, "delta")]
+                ("TS-six-move", 8, 50, True, "int-delta")]
 
 
 def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
@@ -643,7 +675,8 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     path) through `Solver.solve` at the flagship's full width: every chunk
     must report `path`, the returned score must equal a plain rescore, bit
     for bit, and the six-move delta solve must not launch the delta kernel
-    (kd 16 scores through the f64 `score_delta`)."""
+    (kd 16 scores through the f64 `score_delta`; its label is the JAX
+    package's, which names the registered int rows)."""
     import torch
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
@@ -685,13 +718,413 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
           f"chunk; chunk ms {[r['wall_ms'] for r in recs]}", flush=True)
 
 
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def rate_line(label, card, recs, n_isl):
+    """The solve's scored moves/s over all chunks and without chunk 0, its
+    ms a step, beside the card's name and power limit."""
+    def mps(rs):
+        wall = sum(r["wall_ms"] for r in rs) / 1e3
+        return sum(r["moves"] for r in rs) / wall if wall > 0 else 0.0
+
+    steps = sum(r["steps"] for r in recs[1:])
+    step_ms = (sum(r["wall_ms"] for r in recs[1:]) / steps) if steps else 0
+    print(f"{label} solve rate [{card}]: {mps(recs):.1f} scored moves/s "
+          f"over all chunks, {mps(recs[1:]):.1f} excluding the first chunk "
+          f"({recs[0]['moves'] // (n_isl * recs[0]['steps'])} counted per "
+          f"island-step, {step_ms:.3f} ms a step without chunk 0); chunk ms "
+          f"{[r['wall_ms'] for r in recs]}", flush=True)
+
+
+class RunnerWatch:
+    """Records, after every chunk of every `IslandRunner` while active, the
+    largest value of the island leaf `key` (e.g. LSHADE's `arc_count`)."""
+
+    def __init__(self, key):
+        from greyjack_tpu_torch.parallel import IslandRunner
+        self.cls, self.key, self.seen = IslandRunner, key, []
+        self.orig = IslandRunner.run_chunk
+
+    def __enter__(self):
+        watch = self
+
+        def run_chunk(runner, *a, **k):
+            state = watch.orig(runner, *a, **k)
+            watch.seen.append(int(state["islands"][watch.key].max()))
+            return state
+
+        self.cls.run_chunk = run_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_chunk = self.orig
+
+
+def lshade_agent(steps, mixed=False):
+    """LSHADE as `scripts/bench_mh.py` configures it on the flagship
+    (`:114-115`) or on the mixed-int model (`:137-138`: change moves only,
+    tabu rate 0), stopping after `steps` steps."""
+    from greyjack_tpu_torch.agents import LSHADE
+    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    tabu, probas = ((0.0, [1.0, 0.0, 0.0, 0.0, 0.0, 0.0]) if mixed
+                    else (TABU_RATE, MOVE_PROBAS))
+    return LSHADE(LSHADE_POP, LSHADE_POP, 0.2, 0.1, 1, 0.5, 0.9, 0.5, tabu,
+                  None, probas, 0.1, CHUNK_STEPS, StepsLimit(steps - 1))
+
+
+def lshade_body_parity(n_isl=N_ISLANDS, seed=17):
+    """Phase 11a: one LSHADE body step on the card vs on the CPU, from the
+    same state (the CPU's after one step, so the archive holds rows) and
+    the same leaves (drawn once on the CPU)."""
+    import numpy as np
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, generate_instance
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    kernels = {dev: lshade_agent(10 ** 9).build_kernel(ScoreRequester(
+        CotwinBuilder(True, True).build_cotwin(generate_instance(
+            N_CUSTOMERS, N_DEPOTS, K_VEHICLES, seed=SEED, time_windowed=True,
+            device=dev), False))) for dev in (DEVICE, "cpu")}
+    gens = island_generators(seed, n_isl, "cpu")
+    state = kernels["cpu"].step(gens, kernels["cpu"].init_state(gens), {})
+    leaves = kernels["cpu"].draw(gens)
+    out = {dev: kernels[dev].body(to_device(state, dev),
+                                  to_device(leaves, dev))
+           for dev in (DEVICE, "cpu")}
+    torch.cuda.synchronize()
+    if int(state["arc_count"].min()) <= 0:
+        fail("lshade parity: the input archive is empty")
+    worst = {}
+
+    def check(name, w, g):
+        if isinstance(w, dict):
+            for k in w:
+                check(f"{name}/{k}", w[k], g[k])
+            return
+        g = g.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"lshade parity: {name} is {g.dtype}{tuple(g.shape)} on the "
+                 f"card, {w.dtype}{tuple(w.shape)} on the CPU")
+        if name.startswith("adaptive_"):
+            rel = float(((g - w).abs() / w.abs().clamp(min=1e-300)).max())
+            worst[name] = rel
+            if rel > 1e-12:
+                fail(f"lshade parity: {name} differs by a relative {rel}")
+        elif name == "arc_f":
+            ulps = float(((g - w).abs() / torch.from_numpy(
+                np.spacing(w.abs().numpy()))).max())
+            worst[name] = ulps
+            if ulps > 4:
+                fail(f"lshade parity: arc_f differs by {ulps} ulp")
+        elif not torch.equal(g, w):
+            fail(f"lshade parity: {name} differs on the card")
+
+    for key, w in out["cpu"].items():
+        check(key, w, out[DEVICE][key])
+    print(f"lshade parity: {n_isl} islands x {LSHADE_POP}, one body step "
+          f"from an archive of {state['arc_count'].tolist()} rows: "
+          f"{len(out['cpu'])} leaves, integer leaves / population / scores "
+          f"/ archive / arc_cr bit-equal card vs CPU; arc_f max "
+          f"{worst['arc_f']:.1f} ulp; adaptive memories max relative "
+          f"{max(v for k, v in worst.items() if k != 'arc_f'):.3e}",
+          flush=True)
+
+
+def lshade_solve(card, label, n_isl, steps):
+    """Phase 11b: an LSHADE flagship solve through `Solver.solve`."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    t0 = time.perf_counter()
+    with RunnerWatch("arc_count") as watch:
+        sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
+                           CotwinBuilder(True, True), lshade_agent(steps),
+                           n_isl, seed=0,
+                           logging_level=SolverLoggingLevels.Silent,
+                           metrics=metrics)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dk._call_kernel.launches
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {"plain"}:
+        fail(f"{label}: the solve ran path(s) {paths}, not plain")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < steps or recs[-1]["n_alive"] != 0:
+        fail(f"{label}: the solve ran {steps_run} steps")
+    if launches != 0:
+        fail(f"{label}: the solve launched the delta kernel {launches} times")
+    if len(watch.seen) != len(recs) or max(watch.seen) > LSHADE_POP:
+        fail(f"{label}: archive counts {watch.seen} (h = {LSHADE_POP})")
+    score, start = check_solution(sol, label)
+    print(f"{label} solve: {steps_run} steps x {n_isl} islands x "
+          f"{LSHADE_POP} moves in {solve_s:.3f} s, path plain, delta kernel "
+          f"launches 0, largest archive count per chunk {watch.seen}; greedy "
+          f"start {start} -> best {score} (= plain rescore)", flush=True)
+    rate_line(label, card, recs, n_isl)
+
+
+def mixed_builders():
+    from greyjack_tpu_torch.models.mixedint import (CotwinBuilder,
+                                                    DomainBuilder)
+    return (DomainBuilder(MIXED_FLOATS, MIXED_INTS, objective="rastrigin",
+                          device=DEVICE), CotwinBuilder())
+
+
+def mixed_agent(label, steps):
+    """Phase 12's agents (`scripts/bench_mh.py:127-142`): change moves only,
+    tabu rate 0, population / neighbourhood 128."""
+    from greyjack_tpu_torch.agents import GeneticAlgorithm, TabuSearch
+    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    probas = [1.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    lim = StepsLimit(steps - 1)
+    if label.startswith("mixedint-GA"):
+        return GeneticAlgorithm(GA_POP, 0.5, 0.05, 0.0, None, probas, 0.1,
+                                CHUNK_STEPS, lim)
+    if label.startswith("mixedint-LSHADE"):
+        return lshade_agent(steps, mixed=True)
+    return TabuSearch(GA_POP, 0.0, True, None, probas, CHUNK_STEPS, lim)
+
+
+def mixed_solve(card, label, n_isl=N_ISLANDS, steps=SOLVE_STEPS):
+    """Phase 12: one mixed-int rastrigin solve (50 floats + 50 ints)."""
+    import torch
+    from greyjack_tpu_torch.parallel import IslandRunner
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    db, cb = mixed_builders()
+    req = ScoreRequester(cb.build_cotwin(db.build_domain_from_scratch(),
+                                         False))
+    # the start: the best of the initial populations the solve draws
+    start = float(IslandRunner(
+        mixed_agent(label, steps).build_kernel(req), n_isl, CHUNK_STEPS
+    ).init(island_generators(0, n_isl, DEVICE))["islands"]["scores"].min())
+    metrics = SolverMetrics()
+    t0 = time.perf_counter()
+    sol = Solver.solve(db, cb, mixed_agent(label, steps), n_isl, seed=0,
+                       logging_level=SolverLoggingLevels.Silent,
+                       metrics=metrics)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {"plain"}:
+        fail(f"{label}: the solve ran path(s) {paths}, not plain")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < steps or recs[-1]["n_alive"] != 0:
+        fail(f"{label}: the solve ran {steps_run} steps")
+    values = [v for _, v in sol[0]]
+    if len(values) != MIXED_FLOATS + MIXED_INTS or not all(
+            float(v) == int(v) for v in values[MIXED_FLOATS:]):
+        fail(f"{label}: the solution's integer slots are not integral")
+    score = sol[1]["simple_value"]
+    rescored = float(req.request_score_plain(torch.tensor(
+        [values], dtype=torch.float32, device=DEVICE))[0, 0])
+    if not abs(score) < 1e300:
+        fail(f"{label}: non-finite score {score}")
+    if rescored == score:
+        held = "bit for bit"
+    elif abs(rescored - score) <= 1e-12 * abs(score):
+        held = (f"within a relative 1e-12, not bit for bit (|diff| "
+                f"{abs(rescored - score)})")
+    else:
+        fail(f"{label}: solve score {score} != plain rescore {rescored}")
+    if not score < start:
+        fail(f"{label}: best {score} does not improve on the start {start}")
+    print(f"{label} solve: {steps_run} steps x {n_isl} islands x "
+          f"{recs[0]['moves'] // (n_isl * recs[0]['steps'])} moves in "
+          f"{solve_s:.3f} s, path plain; initial best {start} -> best "
+          f"{score} (= plain rescore on the card, {held})", flush=True)
+    rate_line(label, card, recs, n_isl)
+
+
+def exact_phase(card, steps=20, rows=1024):
+    """Phase 13: `exact_fp_scores=True` on the flagship."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import (CotwinBuilder, DomainBuilder,
+                                               generate_instance)
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    exact_cb = CotwinBuilder(True, True, exact_fp_scores=True)
+    reqs = {dev: ScoreRequester(exact_cb.build_cotwin(generate_instance(
+        N_CUSTOMERS, N_DEPOTS, K_VEHICLES, seed=SEED, time_windowed=True,
+        device=dev), False)) for dev in (DEVICE, "cpu")}
+    if reqs[DEVICE].supports_delta:
+        fail("exact: the exact cotwin registered delta kernels")
+    # 1,024 rows: perturbed greedy bases and uniform samples
+    bases = perturbed_bases(reqs["cpu"], rows // 2, seed=23)
+    gens = island_generators(23, 1, "cpu")
+    pop = torch.cat([bases, reqs["cpu"].variables_manager.sample_variables(
+        gens[0], rows - rows // 2)])
+    want = reqs["cpu"].request_score_plain(pop)
+    got = reqs[DEVICE].request_score_plain(pop.to(DEVICE)).cpu()
+    if not torch.equal(got, want):
+        e = float((got - want).abs().max())
+        fail(f"exact: card and CPU exact scores differ (max |diff| {e})")
+    # the fast walk too: its f64 rows are the same card vs CPU
+    fast = {dev: ScoreRequester(CotwinBuilder(True, True).build_cotwin(
+        generate_instance(N_CUSTOMERS, N_DEPOTS, K_VEHICLES, seed=SEED,
+                          time_windowed=True, device=dev), False))
+        for dev in (DEVICE, "cpu")}
+    pop_d = pop.to(DEVICE)
+    fast_rows = fast[DEVICE].request_score_plain(pop_d).cpu()
+    if not torch.equal(fast_rows, fast["cpu"].request_score_plain(pop)):
+        fail("exact: the fast plain scores differ card vs CPU")
+    e_ms, e_all = cuda_ms(lambda: reqs[DEVICE].request_score_plain(pop_d),
+                          reps=5, inner=3)
+    f_ms, f_all = cuda_ms(lambda: fast[DEVICE].request_score_plain(pop_d),
+                          reps=5, inner=3)
+    n_diff = int((fast_rows[:, 2] != want[:, 2]).sum())
+    print(f"exact parity: {rows} rows, exact and fast plain scores each "
+          f"bit-equal card vs CPU; the exact soft level differs from the "
+          f"fast integer-milli walk's in {n_diff} rows (last bits)",
+          flush=True)
+    print(f"exact score time [{card}] at {rows} rows: exact fold {e_ms:.3f} "
+          f"ms a call (runs {[round(t, 3) for t in e_all]}), fast walk "
+          f"{f_ms:.3f} ms (runs {[round(t, 3) for t in f_all]})", flush=True)
+
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    t0 = time.perf_counter()
+    sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
+                       exact_cb, plain_agent("GA", steps), N_ISLANDS, seed=0,
+                       logging_level=SolverLoggingLevels.Silent,
+                       metrics=metrics)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {"plain"}:
+        fail(f"exact GA: the solve ran path(s) {paths}, not plain")
+    if dk._call_kernel.launches != 0:
+        fail("exact GA: the solve launched the delta kernel")
+    score = [sol[1]["hard_score"], sol[1]["medium_score"],
+             sol[1]["soft_score"]]
+    values = torch.tensor([[v for _, v in sol[0]]], dtype=torch.float32,
+                          device=DEVICE)
+    rescored = reqs[DEVICE].request_score_plain(values)[0].tolist()
+    if rescored != score:
+        fail(f"exact GA: solve score {score} != exact rescore {rescored}")
+    print(f"exact GA solve: {sum(r['steps'] for r in recs)} steps x "
+          f"{N_ISLANDS} islands x {GA_POP} moves in {solve_s:.3f} s, path "
+          f"plain; best {score} (= exact plain rescore)", flush=True)
+    rate_line("exact GA", card, recs, N_ISLANDS)
+
+
+class StopAt(Exception):
+    pass
+
+
+class StopObserver:
+    """Stops a solve, as a kill would, when chunk `chunk`'s metrics land
+    (before that chunk's checkpoint is written)."""
+
+    def __init__(self, chunk):
+        self.chunk = chunk
+
+    def update(self, solution):
+        pass
+
+    def update_metrics(self, record):
+        if record["chunk"] == self.chunk:
+            raise StopAt()
+
+
+def resume_phase(card, steps=40):
+    """Phase 14: checkpoint / resume on the int-delta flagship; returns the
+    delta kernel's launches in the two runs."""
+    import shutil
+    import tempfile
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+    from greyjack_tpu_torch.solver.checkpoint import load_checkpoint
+
+    def solve(**kw):
+        metrics = SolverMetrics()
+        sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
+                           CotwinBuilder(True, True), flagship_agent(steps),
+                           N_ISLANDS, seed=0,
+                           logging_level=SolverLoggingLevels.Silent,
+                           metrics=metrics, **kw)
+        torch.cuda.synchronize()
+        return sol, metrics.records
+
+    dk._call_kernel.launches = 0
+    want, recs = solve()
+    full_launches = dk._call_kernel.launches
+    tmp = tempfile.mkdtemp(prefix="gj_ckpt_")
+    try:
+        ckpt = os.path.join(tmp, "solve.ckpt")
+        try:
+            solve(checkpoint_path=ckpt, checkpoint_frequency=1,
+                  observers=[StopObserver(3)])
+            fail("resume: the stopped solve ran to its end")
+        except StopAt:
+            pass
+        held = load_checkpoint(ckpt)["chunk_id"]
+        if held != 3:
+            fail(f"resume: the checkpoint holds chunk_id {held}, not 3")
+        dk._call_kernel.launches = 0
+        got, r_recs = solve(resume_from=ckpt)
+        resumed_launches = dk._call_kernel.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if {r["kernel_path"] for r in recs + r_recs} != {"int-delta"}:
+        fail("resume: a run left the int-delta path")
+    if full_launches <= 0 or resumed_launches <= 0:
+        fail(f"resume: kernel launches {full_launches} (uninterrupted), "
+             f"{resumed_launches} (resumed)")
+    if got != want:
+        fail(f"resume: resumed solve {got[1]} != uninterrupted {want[1]} "
+             "(score or values differ)")
+    if [r["global_best"] for r in r_recs] != [r["global_best"]
+                                             for r in recs[3:]]:
+        fail("resume: the resumed chunks' global bests differ")
+    score, start = check_solution(got, "resume")
+    print(f"resume: {steps} steps x {N_ISLANDS} islands x {NEIGHBOURS} "
+          f"neighbours, path int-delta; stopped when chunk 3's metrics "
+          f"landed, resumed from the checkpoint of chunks 0-2: score {score} "
+          f"and {len(got[0])} values equal the uninterrupted solve's, bit "
+          f"for bit; kernel launches {full_launches} uninterrupted, "
+          f"{resumed_launches} resumed", flush=True)
+    rate_line("resume (uninterrupted)", card, recs, N_ISLANDS)
+    return full_launches + resumed_launches
+
+
 def profile(out_dir, path, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
     warm-up chunk) of the int-delta, the sweep, the LateAcceptance
     random-move ("la-random", 512 islands), the GeneticAlgorithm ("ga", 8
     islands x 128), the plain TabuSearch ("ts-plain", 8 islands x 2048,
-    six moves, full rescore) or the plain LateAcceptance ("la-plain", 512
-    islands x 1) path, with a labelled range around the step and each of
+    six moves, full rescore), the plain LateAcceptance ("la-plain", 512
+    islands x 1) or the LSHADE ("lshade", 8 islands x 128) path, or of
+    LSHADE on the mixed-int model ("mixedint-lshade", 50 floats + 50 ints,
+    8 islands x 128), with a labelled range around the step and each of
     its stages."""
     import torch
     from torch.autograd import DeviceType
@@ -714,10 +1147,16 @@ def profile(out_dir, path, n_chunks=3):
         wrapped.launches = getattr(fn, "launches", 0)
         return wrapped
 
-    plain = path in ("ga", "ts-plain", "la-plain")
-    req = ScoreRequester(CotwinBuilder(
-        path not in ("ts-plain", "la-plain"), True).build_cotwin(
-        flagship_domain(), False))
+    plain = path in ("ga", "ts-plain", "la-plain", "lshade",
+                     "mixedint-lshade")
+    if path == "mixedint-lshade":
+        db, cb = mixed_builders()
+        req = ScoreRequester(cb.build_cotwin(db.build_domain_from_scratch(),
+                                             False))
+    else:
+        req = ScoreRequester(CotwinBuilder(
+            path not in ("ts-plain", "la-plain"), True).build_cotwin(
+            flagship_domain(), False))
     if path == "sweep":
         stages = [(sw, "sample_targets", "step.sweep.sample_targets"),
                   (sw, "build_tables", "step.sweep.build_tables"),
@@ -758,6 +1197,10 @@ def profile(out_dir, path, n_chunks=3):
         elif path == "la-plain":
             kernel = plain_agent("LA-plain", 10 ** 9).build_kernel(req)
             n_isl, want_path = RANDOM_ISLANDS, "plain"
+        elif path in ("lshade", "mixedint-lshade"):
+            kernel = lshade_agent(10 ** 9, mixed=path != "lshade"
+                                  ).build_kernel(req)
+            n_isl, want_path = N_ISLANDS, "plain"
         else:
             kernel = flagship_agent(10 ** 9, path == "sweep").build_kernel(
                 req)
@@ -992,10 +1435,25 @@ def main(argv):
     for label, n_isl, steps, delta_cotwin, path in PLAIN_SOLVES:
         plain_solve(card, label, n_isl, steps, delta_cotwin, path)
 
+    # --- 8. LSHADE on the flagship (docstring phase 11) -----------------------
+    lshade_body_parity()
+    lshade_solve(card, "LSHADE", N_ISLANDS, SOLVE_STEPS)
+    lshade_solve(card, "LSHADE-wide", 64, 50)
+
+    # --- 9. the mixed-int model (phase 12) ------------------------------------
+    for label in ("mixedint-GA", "mixedint-LSHADE", "mixedint-TS-random"):
+        mixed_solve(card, label)
+
+    # --- 10. exact_fp_scores (phase 13) ---------------------------------------
+    exact_phase(card)
+
+    # --- 11. checkpoint / resume (phase 14) -----------------------------------
+    launches += resume_phase(card)
+
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
         for path in ("int-delta", "sweep", "la-random", "ga", "ts-plain",
-                     "la-plain"):
+                     "la-plain", "lshade", "mixedint-lshade"):
             profile(out_dir, path)
 
     flag = shapes[0]

@@ -89,6 +89,8 @@ class TabuSearch:
             if score_precision is not None and precision_ok else None)
         init_state, refresh, prestep = base.ctx_state_fns(requester, cfg,
                                                           score_fn)
+        use_ints = (precision_ok
+                    and requester.delta_ints_eligible(cfg.delta_width))
 
         def step(generators, state, extras):
             # self-gating: for an island with `_active` False every write
@@ -103,14 +105,13 @@ class TabuSearch:
             deltas, info = moves.move_population_delta(
                 generators, base_row, n, vm, cfg, state["tabu"],
                 extras.get("_free"))
-            # int-delta rows where the model and the kernel allow (a
-            # host-side static): rank / accept on exact i32 deltas and
-            # materialize the f64 score from the ctx sums; else f64 rows
-            ints = None
-            if precision_ok:
+            # int-delta rows where the model and the kernel serve this
+            # width (`use_ints`, a host-side static): rank / accept on
+            # exact i32 deltas and materialize the f64 score from the ctx
+            # sums; else f64 rows
+            if use_ints:
                 ints = requester.request_score_delta_ints(state["ctx"],
                                                           deltas)
-            if ints is not None:
                 best = lexico.lex_argmin(ints)                 # [I]
                 best_delta = moves.take_one(ints, best)        # [I, S]
                 if ints_to_row is None:
@@ -147,11 +148,13 @@ class TabuSearch:
                 state["step_id"].dtype)
             return state
 
-        # the i32 rows serve this delta width (the VRP kernel: kd <= 2);
-        # wider moves (the six-move mix, kd 16) score as f64 rows. The free
-        # lists feed the narrow sampler only
+        # the label is the JAX package's (`tabu_search.py:181-191`):
+        # "int-delta" whenever the model registers the integer rows and
+        # precision allows, even where the step's i32 route turns this
+        # width or instance down (kd 16, i64 bounds) and scores f64 rows.
+        # The free lists feed the narrow sampler only
         has_ints = (precision_ok
-                    and requester.delta_ints_eligible(cfg.delta_width))
+                    and requester.registers_delta_ints)
         return base.MetaheuristicKernel(
             self, init_state, step, refresh, self_gating=True,
             prestep=prestep if cfg.narrow else None,

@@ -8,8 +8,21 @@ moves and carry identically typed state.
 
 import torch
 
-# dtype of chromosomes / move arithmetic (score rows are always f64)
+# dtype of chromosomes / move arithmetic (score rows are always f64); a
+# `VariablesManager` reads it when it is built. Call `use_float64()` before
+# building a model whose continuous variables need f64 chromosomes.
 FLOAT_DTYPE = torch.float32
+
+
+def use_float64():
+    global FLOAT_DTYPE
+    FLOAT_DTYPE = torch.float64
+
+
+def use_float32():
+    global FLOAT_DTYPE
+    FLOAT_DTYPE = torch.float32
+
 # dtype of integer columns handed to constraint kernels
 INT_DTYPE = torch.int32
 

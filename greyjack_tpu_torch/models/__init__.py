@@ -1,2 +1,3 @@
 """Problem model families ported so far: vrp (multi-depot CVRP(-TW),
-HardMediumSoftScore)."""
+HardMediumSoftScore) and mixedint (continuous / mixed-integer benchmark
+objectives, SimpleScore)."""

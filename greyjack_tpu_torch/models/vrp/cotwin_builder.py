@@ -30,6 +30,7 @@ from greyjack_tpu_torch.score_calculation.score_calculators import (
     IncrementalScoreCalculator,
 )
 from greyjack_tpu_torch.ops import segments, routes, join, moves, lexico
+from greyjack_tpu_torch.utils.math_utils import true_div
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -97,10 +98,10 @@ def _first_true(mask):
 
 def build_common(planning, facts, utils):
     """Prescoring for a population: stable vehicle sort + one fused route
-    walk + duplicate count + loads (the JAX fast path)."""
-    if utils["exact_fp_scores"]:
-        raise NotImplementedError(
-            "exact_fp_scores=True (the sequential f64 fold) is not ported yet")
+    walk + duplicate count + loads. The fast walk sums exact integer-milli
+    distances; `exact_fp_scores=True` switches to the walk that folds the
+    f64 distances in the reference's sequential order
+    (`routes.vrp_routes`), bit-equal to the JAX package's exact branch."""
     stops = planning["planning_stops"]
     v = stops["vehicle_id"]
     c = stops["customer_id"]
@@ -108,10 +109,17 @@ def build_common(planning, facts, utils):
     sorted_c = join.apply_permutation(c, perm)
     cust_rows = utils["cust_packed"][sorted_c.long()]
     dups = segments.count_minus_n_unique(c, utils["n_locations"])
-    dist, lateness = routes.vrp_routes_packed(
-        sorted_v, sorted_c, utils["dm_flat_milli"], utils["n_locations"],
-        utils["vehicle_depot_ids"], utils["work_day_start_k"],
-        utils["work_day_end_k"], cust_rows, utils["time_windowed"])
+    if utils["exact_fp_scores"]:
+        dist, lateness = routes.vrp_routes(
+            sorted_v, sorted_c, utils["distance_matrix"],
+            utils["vehicle_depot_ids"], utils["k_vehicles"],
+            utils["work_day_start_k"], utils["work_day_end_k"],
+            cust_rows if utils["time_windowed"] else None)
+    else:
+        dist, lateness = routes.vrp_routes_packed(
+            sorted_v, sorted_c, utils["dm_flat_milli"], utils["n_locations"],
+            utils["vehicle_depot_ids"], utils["work_day_start_k"],
+            utils["work_day_end_k"], cust_rows, utils["time_windowed"])
     loads = segments.segment_sum(cust_rows[..., 0], sorted_v,
                                  utils["k_vehicles"])
     return {
@@ -683,7 +691,7 @@ def score_delta(ctx, deltas, utils):
     hard = (1000.0 * p["new_dups"].to(f64)
             + (ctx["sum_overflow"][:, None] + p["d_over"]).to(f64))
     medium = (ctx["sum_late"][:, None] + p["d_late"]).to(f64)
-    soft = (ctx["sum_dist"][:, None] + p["d_dist"]).to(f64) / 1000.0
+    soft = true_div((ctx["sum_dist"][:, None] + p["d_dist"]).to(f64), 1000.0)
     row = torch.stack([hard, medium, soft], dim=-1)
     bad = p["over_cap"] | ctx["base_over"][:, None]
     return torch.where(bad[..., None],
@@ -696,7 +704,7 @@ def ctx_score_row(ctx, utils):
     hard = (1000.0 * ctx["dups"].to(torch.float64)
             + ctx["sum_overflow"].to(torch.float64))
     medium = ctx["sum_late"].to(torch.float64)
-    soft = ctx["sum_dist"].to(torch.float64) / 1000.0
+    soft = true_div(ctx["sum_dist"].to(torch.float64), 1000.0)
     row = torch.stack([hard, medium, soft], dim=-1)
     stub = lexico.stub_score_row(3, device=row.device)
     return torch.where(ctx["base_over"][:, None], stub, row)
@@ -908,10 +916,6 @@ class CotwinBuilder(CotwinBuilderBase):
         return initial_vehicle, initial_customer, frozen
 
     def build_cotwin(self, domain, is_already_initialized):
-        if self.exact_fp_scores:
-            raise NotImplementedError(
-                "exact_fp_scores=True (the sequential f64 fold) is not "
-                "ported yet")
         device = domain.distance_matrix.device
         n_depots = len(domain.depot_vec)
         n_locations = len(domain.customers_vec)
@@ -1009,7 +1013,9 @@ class CotwinBuilder(CotwinBuilderBase):
         calculator.add_constraint("late_arrival_penalty", late_arrival_penalty)
         if not domain.time_windowed:
             calculator.remove_constraint("late_arrival_penalty")
-        if self.use_incremental_score_calculation:
+        # the delta kernels sum integer-milli distances; the exact scores
+        # are plain only, as in the JAX package
+        if self.use_incremental_score_calculation and not self.exact_fp_scores:
             from greyjack_tpu_torch.models.vrp import delta_kernel, sweep
             calculator.set_delta_kernels(build_delta_ctx, score_delta,
                                          update_ctx, ctx_score=ctx_score_row,

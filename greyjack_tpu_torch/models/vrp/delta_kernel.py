@@ -34,6 +34,7 @@ import os
 import torch
 
 from greyjack_tpu_torch.ops import moves, lexico
+from greyjack_tpu_torch.utils.math_utils import true_div
 from greyjack_tpu_torch.models.vrp.cotwin_builder import _delta_common, _take
 
 _BIG = 1 << 30
@@ -595,7 +596,8 @@ def _post(outs, aux, ctx, utils, as_ints=False):
     hard = (1000.0 * c["new_dups"].to(torch.float64)
             + (ctx["sum_overflow"][:, None] + d_over).to(torch.float64))
     medium = (ctx["sum_late"][:, None] + d_late).to(torch.float64)
-    soft = (ctx["sum_dist"][:, None] + d_dist).to(torch.float64) / 1000.0
+    soft = true_div((ctx["sum_dist"][:, None] + d_dist).to(torch.float64),
+                    1000.0)
     out = torch.stack([hard, medium, soft], dim=-1)
     stub = lexico.stub_score_row(3, device=dev)
     return torch.where(bad[..., None], stub, out)

@@ -33,6 +33,7 @@ import torch
 
 from greyjack_tpu_torch.models.vrp import cotwin_builder as cb
 from greyjack_tpu_torch.ops import lexico
+from greyjack_tpu_torch.utils.math_utils import true_div
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -754,7 +755,7 @@ def exact_score_row(ctx, exact_ints, utils):
     hard = (1000.0 * ctx["dups"].to(f64) + ctx["sum_overflow"].to(f64)
             + exact_ints[..., 0].to(f64))
     medium = (ctx["sum_late"] + exact_ints[..., 1]).to(f64)
-    soft = (ctx["sum_dist"] + exact_ints[..., 2]).to(f64) / 1000.0
+    soft = true_div((ctx["sum_dist"] + exact_ints[..., 2]).to(f64), 1000.0)
     row = torch.stack([hard, medium, soft], dim=-1)
     bad = (exact_ints[..., 0] == _STUB) | ctx["base_over"]
     return torch.where(bad[..., None],

@@ -32,7 +32,7 @@ class IslandRunner:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device islands are not ported yet (ROADMAP Queue 1 "
-                "item 9)")
+                "item 2)")
         self.kernel = kernel
         self.n_islands = int(n_islands)
         self.migration_frequency = int(migration_frequency)

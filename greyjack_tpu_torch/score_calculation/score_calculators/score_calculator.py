@@ -37,6 +37,10 @@ class PlainScoreCalculator:
         self.constraints.pop(name, None)
         self.constraint_weights.pop(name, None)
 
+    def set_constraint_weights(self, weights: dict):
+        for name, w in weights.items():
+            self.constraint_weights[name] = float(w)
+
     def add_prescoring_function(self, name, fn):
         self.prescoring_functions[name] = fn
 

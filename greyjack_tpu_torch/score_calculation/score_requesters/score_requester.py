@@ -173,20 +173,27 @@ class ScoreRequester:
         """Integer delta rows i32[I, P, S] for the local-search accept loop,
         or None when the model / kernel does not support them for this
         shape (a host-side static, so callers branch in Python)."""
-        calc = self.cotwin.score_calculator
-        ints_fn = getattr(calc, "delta_score_batch_ints_fn", None)
-        if ints_fn is None or getattr(calc, "delta_ctx_score_fn", None) is None:
+        if not self.registers_delta_ints:
             return None
-        return ints_fn(ctx, deltas, self._delta_utils())
+        return self.cotwin.score_calculator.delta_score_batch_ints_fn(
+            ctx, deltas, self._delta_utils())
+
+    @property
+    def registers_delta_ints(self):
+        """True when the model registered the integer delta rows and the
+        ctx score they are read against (what the JAX package's TabuSearch
+        labels "int-delta")."""
+        calc = self.cotwin.score_calculator
+        return (getattr(calc, "delta_score_batch_ints_fn", None) is not None
+                and getattr(calc, "delta_ctx_score_fn", None) is not None)
 
     def delta_ints_eligible(self, kd):
         """Whether `request_score_delta_ints` serves kd-wide deltas: the
         model registered the integer rows and its eligibility gate (if
         any) passes this width. A host-side static."""
-        calc = self.cotwin.score_calculator
-        if (getattr(calc, "delta_score_batch_ints_fn", None) is None
-                or getattr(calc, "delta_ctx_score_fn", None) is None):
+        if not self.registers_delta_ints:
             return False
+        calc = self.cotwin.score_calculator
         gate = getattr(calc, "delta_batch_eligible_fn", None)
         return gate is None or bool(gate(self._delta_utils(), kd))
 

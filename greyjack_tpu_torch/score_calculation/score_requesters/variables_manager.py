@@ -55,6 +55,7 @@ class VariablesManager:
         self.frozen_mask_np = frozen
         self.has_initial_mask = dev(has_initial)
         self.initial_values = dev(initial, fd)
+        self.discrete_ids = np.nonzero(discrete)[0].tolist() or None
         # packed (lower, upper, discrete) [V, 3]: one per-position gather in
         # the generic delta sampler
         self.bounds_pack = torch.stack(
@@ -68,6 +69,7 @@ class VariablesManager:
                 groups.setdefault(group_name, [])
                 if not var.frozen:
                     groups[group_name].append(i)
+        self.semantic_groups_map = groups
         self.n_semantic_groups = len(groups)
         self.semantic_group_keys = list(groups.keys())
 
@@ -119,6 +121,11 @@ class VariablesManager:
         fixed = torch.where(self.discrete_mask, rint_t(fixed), fixed)
         return torch.where(self.frozen_mask,
                            self.initial_values.to(values.dtype), fixed)
+
+    def inverse_transform_float(self, values):
+        """fix_all() without an integer cast: the values typed frames are
+        built from."""
+        return self.fix_all(values)
 
     # --- host helpers -------------------------------------------------------
     def get_variables_names_vec(self):

@@ -13,11 +13,19 @@ Each record: {"chunk", "steps", "wall_ms", "moves", "moves_per_s",
 path.
 Observers implementing `update_metrics(record)` receive every record as it
 lands. `wall_ms` is measured after the device finished the chunk.
+
+Profiling: `Solver.solve(..., profile_dir=DIR)` captures a `torch.profiler`
+trace (host, and the card when the solve runs on one) of chunks
+[start_chunk, start_chunk + n_chunks) and writes it to DIR as a Chrome
+trace, `trace_chunks_<first>-<last>.json`.
 """
 
 from __future__ import annotations
 
+import os
 import time
+
+import torch
 
 
 class SolverMetrics:
@@ -51,3 +59,46 @@ class SolverMetrics:
                 if r["improved"]
             ],
         }
+
+
+class ProfileCapture:
+    """A `torch.profiler` trace bounded to a window of chunks."""
+
+    def __init__(self, profile_dir, start_chunk=2, n_chunks=3, device="cpu"):
+        self.profile_dir = profile_dir
+        self.start_chunk = start_chunk
+        self.n_chunks = n_chunks
+        self.device = torch.device(device)
+        self._prof = None
+        self._first = None
+        self._done = False
+
+    def tick(self, chunk_id):
+        """Call once per chunk with the about-to-run chunk id."""
+        if self.profile_dir is None or self._done:
+            return
+        if self._prof is None and chunk_id >= self.start_chunk:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+            self._first = chunk_id
+        elif (self._prof is not None
+              and chunk_id >= self.start_chunk + self.n_chunks):
+            self._stop(chunk_id - 1)
+
+    def close(self, last_chunk=None):
+        if self._prof is not None:
+            self._stop(last_chunk)
+
+    def _stop(self, last_chunk):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        last = self._first if last_chunk is None else last_chunk
+        self._prof.export_chrome_trace(os.path.join(
+            self.profile_dir, f"trace_chunks_{self._first}-{last}.json"))
+        self._prof = None
+        self._done = True

@@ -9,10 +9,11 @@ observers and metrics, until every island has terminated. Each island draws
 from its own `torch.Generator`, seeded from `seed`.
 
 LocalSearch agents (TabuSearch, LateAcceptance, SimulatedAnnealing) run one
-individual an island; Population agents (GeneticAlgorithm) run
+individual an island; Population agents (GeneticAlgorithm, LSHADE) run
 `population_size` an island, migrate `migration_rate` of it, and count
-`population_size` moves per island-step. Not ported yet: LSHADE, `mesh`,
-`checkpoint_path` / `resume_from` and `profile_dir` (each raises).
+`population_size` moves per island-step. A solve can write checkpoints and
+resume from one (`solver/checkpoint.py`), and capture a profiler trace of a
+few chunks (`profile_dir`). Not ported yet: `mesh` (raises).
 """
 
 from __future__ import annotations
@@ -23,12 +24,16 @@ import time
 import numpy as np
 import torch
 
+from greyjack_tpu_torch.interop import from_numpy_tree
 from greyjack_tpu_torch.parallel.islands import IslandRunner
 from greyjack_tpu_torch.score_calculation.score_requesters import ScoreRequester
 from greyjack_tpu_torch.solver.solver_logging_levels import SolverLoggingLevels
 from greyjack_tpu_torch.agents.termination_strategies.strategies import (
     StepsLimit,
 )
+from greyjack_tpu_torch.solver.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+from greyjack_tpu_torch.solver.metrics import ProfileCapture
 
 
 def _convert_to_json(variables_manager, values_row, score_obj):
@@ -76,21 +81,22 @@ class Solver:
         metrics=None,
         profile_dir=None,
     ):
-        """metrics: a `solver.metrics.SolverMetrics` collector, filled with
+        """checkpoint_path: if set, the solve state (island tree, island
+        generators, termination strategies, alive mask, chunk counter,
+        best solution) is written there atomically every
+        `checkpoint_frequency` chunks and at termination. resume_from: a
+        path (or a dict) from `checkpoint.load_checkpoint`; the program is
+        rebuilt from the builders, which must match the checkpointed
+        configuration, and the solve continues where it stopped.
+        metrics: a `solver.metrics.SolverMetrics` collector, filled with
         one record per chunk (wall ms after the device finished, moves/s,
         best score, kernel path) and fanned out to observers implementing
-        `update_metrics`."""
-        for name, value in (("mesh", mesh), ("checkpoint_path", checkpoint_path),
-                            ("resume_from", resume_from),
-                            ("profile_dir", profile_dir)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Solver.solve({name}=...) is not ported yet")
-
-        if getattr(agent_builder, "metaheuristic_name", None) == "LSHADE":
+        `update_metrics`. profile_dir: write a `torch.profiler` trace of
+        a few chunks (`metrics.ProfileCapture`) there."""
+        if mesh is not None:
             raise NotImplementedError(
-                "LSHADE is not ported yet (ROADMAP Queue 1 item 6, with the "
-                "mixed-int model)")
+                "Solver.solve(mesh=...) is not ported yet (multi-GPU "
+                "islands, ROADMAP Queue 1 item 2)")
 
         # --- domain dispatch (`solver.rs:106-119`) ------------------------
         if initial_solution is None:
@@ -129,14 +135,31 @@ class Solver:
             compare_to_global=getattr(agent_builder, "compare_to_global", True),
         )
 
-        if seed is None:
-            seed = np.random.SeedSequence().entropy % (2**63)
-        generators = island_generators(seed, n_jobs, device)
-        state = runner.init(generators)
-        strategies = [agent_builder.termination_strategy.clone()
-                      for _ in range(n_jobs)]
-        alive = np.ones(n_jobs, dtype=bool)
-        chunk_id = 0
+        global_score_obj = None
+        solution_json = None
+        if resume_from is not None:
+            resumed = (resume_from if isinstance(resume_from, dict)
+                       else load_checkpoint(resume_from))
+            state = from_numpy_tree(resumed["state"], device)
+            generators = island_generators(0, n_jobs, device)
+            for g, g_state in zip(generators, resumed["generators"],
+                                  strict=True):
+                g.set_state(torch.from_numpy(np.array(g_state)))
+            strategies = resumed["strategies"]
+            alive = np.asarray(resumed["alive"], dtype=bool).copy()
+            chunk_id = resumed["chunk_id"]
+            if resumed.get("best") is not None:
+                best_row, solution_json = resumed["best"]
+                global_score_obj = score_class.from_row(best_row)
+        else:
+            if seed is None:
+                seed = np.random.SeedSequence().entropy % (2**63)
+            generators = island_generators(seed, n_jobs, device)
+            state = runner.init(generators)
+            strategies = [agent_builder.termination_strategy.clone()
+                          for _ in range(n_jobs)]
+            alive = np.ones(n_jobs, dtype=bool)
+            chunk_id = 0
         vm = requester.variables_manager
         solving_start = time.time()
         is_sa_auto = (
@@ -144,14 +167,25 @@ class Solver:
             and agent_builder.metaheuristic_name == "SimulatedAnnealing"
         )
 
+        def save(final=False):
+            if checkpoint_path is None:
+                return
+            if not final and chunk_id % max(1, checkpoint_frequency) != 0:
+                return
+            best = (None if global_score_obj is None
+                    else (np.asarray(global_score_obj.values), solution_json))
+            save_checkpoint(checkpoint_path, state=state,
+                            generators=generators, strategies=strategies,
+                            alive=alive, chunk_id=chunk_id, best=best,
+                            meta={"n_jobs": n_jobs, "seed": seed})
+
+        profiler = ProfileCapture(profile_dir, device=device)
         if metrics is not None:
             metrics.start()
         moves_per_step = (kernel.moves_per_step
                           or getattr(agent_builder, "neighbours_count", None)
                           or kernel.population_size)
 
-        global_score_obj = None
-        solution_json = None
         while True:
             # fixed chunk size; per-island step budgets keep StepsLimit exact
             steps = runner.migration_frequency
@@ -174,6 +208,7 @@ class Solver:
                      for s, b in zip(strategies, budgets)],
                     dtype=torch.float64, device=device)
 
+            profiler.tick(chunk_id)
             chunk_moves = int(np.sum(budgets[alive])) * moves_per_step
             if metrics is not None:
                 _sync(device)
@@ -239,8 +274,10 @@ class Solver:
             _log(logging_level, chunk_id, steps, new_global, improved,
                  solving_start, int(np.sum(alive)))
             chunk_id += 1
+            save(final=not alive.any())
             if not alive.any():
                 break
+        profiler.close(chunk_id - 1)
 
         if solution_json is None:
             solution_json = _convert_to_json(

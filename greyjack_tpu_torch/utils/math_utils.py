@@ -41,3 +41,12 @@ def round_decimal_t(value, precision):
         (10.0 ** p.astype(np.int64)).astype(np.float64), device=value.device)
     fl = torch.floor(value)
     return fl + torch.floor((value - fl) * multiplier) / multiplier
+
+
+def true_div(x, divisor):
+    """x / divisor (a Python number), correctly rounded on every device.
+    CUDA computes a tensor divided by a Python number as the product with
+    the number's reciprocal, which can differ from the quotient in the last
+    bit (x / 1000.0 against x * 0.001); a tensor divisor takes the true
+    division, as the CPU and the JAX package's eager scores do."""
+    return x / torch.full_like(x, divisor)

@@ -277,3 +277,64 @@ def stack_states(states):
     """Per-island JAX states -> one numpy tree with a leading island axis."""
     return jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
                         *states)
+
+
+def mixedint_pair(n_floats=4, n_ints=4, objective="rastrigin", lower=-5.12,
+                  upper=5.12):
+    """(jax_requester, torch_requester) of one mixed-int instance built by
+    both packages (the port's on the CPU)."""
+    from greyjack_tpu.models.mixedint import (DomainBuilder as JMIDomain,
+                                              CotwinBuilder as JMICotwin)
+    from greyjack_tpu_torch.models.mixedint import (
+        DomainBuilder as TMIDomain, CotwinBuilder as TMICotwin)
+
+    args = (n_floats, n_ints, lower, upper, objective)
+    jd = JMIDomain(*args).build_domain_from_scratch()
+    td = TMIDomain(*args, device="cpu").build_domain_from_scratch()
+    return (JScoreRequester(JMICotwin().build_cotwin(jd, False)),
+            TScoreRequester(TMICotwin().build_cotwin(td, False)))
+
+
+def jax_lshade_noise(key, p, h, g_size, p_best_rate, jvm, jcfg, dtype):
+    """The leaves the JAX LSHADE step draws from `key`
+    (`greyjack_tpu/agents/lshade.py:95-196`) for one island, in the port's
+    layout (torch, CPU, no island axis): `split(key, 12)`, the children's
+    move noise split per child from ks[10] as `move_population` splits it,
+    and the prune noise from `fold_in(key, 1337)`."""
+    import jax.numpy as jnp
+
+    v = jvm.variables_count
+    ks = jax.random.split(key, 12)
+    f64 = jnp.float64
+    out = {
+        "rid": jax.random.randint(ks[0], (p,), 0, h),
+        "n_cr": jax.random.normal(ks[1], (p,), f64),
+        "n_mp": jax.random.normal(ks[2], (p,), f64),
+        "u_c": jax.random.uniform(ks[3], (p, 8), f64),
+        "u_pb": jax.random.uniform(ks[4], (p,), f64, minval=1e-5,
+                                   maxval=p_best_rate),
+        "u_pid": jax.random.uniform(ks[5], (p,), f64),
+        "u_r1": jax.random.uniform(ks[6], (p,), f64),
+        "u_r2": jax.random.uniform(ks[7], (p,), f64),
+        "u_branch": jax.random.uniform(ks[8], (p, 2), f64),
+        "u_mask": jax.random.uniform(ks[9], (p, v), jnp.float32),
+        "u_prune": jax.random.uniform(jax.random.fold_in(key, 1337),
+                                      (h + p,), f64),
+    }
+    if g_size > 0:
+        kg1, kg2 = jax.random.split(ks[11])
+        out["cnt"] = jax.random.randint(kg1, (p,), 1, g_size + 1)
+        out["gsel"] = jax.random.uniform(kg2, (p, v), jnp.float32)
+    tree = from_numpy_tree(to_np(out), device="cpu")
+    move = jax_population_noise([ks[10]], jax_move_noise, jvm, jcfg, dtype,
+                                p)
+    tree["move"] = {k: x[0] for k, x in move.items()}
+    return tree
+
+
+def stack_leaves(trees):
+    """Per-island torch leaf trees -> one tree with a leading island
+    axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack_leaves([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)

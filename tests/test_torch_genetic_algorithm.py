@@ -189,13 +189,3 @@ def test_ga_solve_reports_plain_and_rescores(delta_cotwin):
     rescored = req.request_score_plain(torch.from_numpy(values))[0]
     assert rescored.tolist() == [sol[1]["hard_score"], sol[1]["medium_score"],
                                  sol[1]["soft_score"]]
-
-
-def test_lshade_raises_naming_its_roadmap_item():
-    class LSHADE:
-        metaheuristic_kind = "Population"
-        metaheuristic_name = "LSHADE"
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        Solver.solve(DomainBuilder.from_generator(_gen),
-                     CotwinBuilder(True, True), LSHADE(), 1, seed=0)

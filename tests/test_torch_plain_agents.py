@@ -144,8 +144,13 @@ def test_six_move_tabu_runs_the_f64_delta_path():
                        CotwinBuilder(True, True), agent, 2, seed=4,
                        logging_level=SolverLoggingLevels.Silent,
                        metrics=metrics)
-    # kd = 16: the fused kernel's i32 rows do not serve it
-    assert {r["kernel_path"] for r in metrics.records} == {"delta"}
+    # kd = 16: the fused kernel's i32 rows do not serve it, and the step
+    # scores f64 rows; the label is the JAX package's, which names the
+    # registered int rows ("int-delta")
+    assert {r["kernel_path"] for r in metrics.records} == {"int-delta"}
+    req_d = ScoreRequester(CotwinBuilder(True, True).build_cotwin(_gen(),
+                                                                  False))
+    assert not req_d.delta_ints_eligible(16)
     values = np.array([[v for _, v in sol[0]]], dtype=np.float32)
     req = ScoreRequester(CotwinBuilder(True, False).build_cotwin(_gen(),
                                                                  False))

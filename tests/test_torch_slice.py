@@ -60,6 +60,12 @@ def test_port_imports_no_jax():
             "import greyjack_tpu_torch.models.vrp.sweep\n"
             "import greyjack_tpu_torch.interop, greyjack_tpu_torch.cuda_build\n"
             "import greyjack_tpu_torch.agents.genetic_algorithm\n"
+            "import greyjack_tpu_torch.agents.lshade\n"
+            "import greyjack_tpu_torch.agents.base_individual\n"
+            "import greyjack_tpu_torch.models.mixedint\n"
+            "import greyjack_tpu_torch.domain\n"
+            "import greyjack_tpu_torch.solver.checkpoint\n"
+            "import greyjack_tpu_torch.solver.metrics\n"
             "import greyjack_tpu_torch.ops.moves, greyjack_tpu_torch.ops.selection\n"
             "import greyjack_tpu_torch.ops.lexico, greyjack_tpu_torch.parallel\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -73,14 +79,16 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
+    """Of `Solver.solve`'s options only `mesh=` (multi-GPU islands, ROADMAP
+    Queue 1) is still unported; it raises before any work is done."""
     agent = TabuSearch(8, 0.2, True, None, [0.5, 0.5, 0, 0, 0, 0], 2,
                        StepsLimit(2))
-    db = DomainBuilder.from_generator(
-        lambda: generate_instance(10, 1, 2, seed=1, device="cpu"))
-    with pytest.raises(NotImplementedError):
-        Solver.solve(db, CotwinBuilder(True, True, exact_fp_scores=True),
-                     agent, 1, seed=0,
+
+    class _Never:
+        def build_domain_from_scratch(self):
+            raise AssertionError("built a domain before refusing mesh=")
+
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Solver.solve(_Never(), CotwinBuilder(True, True), agent, 1, seed=0,
+                     mesh=object(),
                      logging_level=SolverLoggingLevels.Silent)
-    with pytest.raises(NotImplementedError):
-        Solver.solve(db, CotwinBuilder(True, True), agent, 1, seed=0,
-                     checkpoint_path="unused")

@@ -81,3 +81,33 @@ def test_segment_and_scan_ops():
     got = routes._maxplus_scan(torch.from_numpy(adds),
                                torch.from_numpy(floors))
     assert_leaf_equal(want, got, "maxplus")
+
+
+@pytest.mark.parametrize("tw", [True, False])
+def test_set_constraint_weights_matches_jax(tw):
+    """Reweighting constraints of the plain VRP cotwin changes
+    `score_batch` exactly as the JAX calculator's reweighting does."""
+    from _port_parity import plain_pair
+
+    jreq, treq = plain_pair(tw=tw)
+    rng = np.random.default_rng(8)
+    vm = treq.variables_manager
+    lo = vm.lower_bounds.numpy()
+    hi = vm.upper_bounds.numpy()
+    pop = np.floor(lo + rng.random((12, lo.shape[0])) * (hi - lo + 1)
+                   ).astype(np.float32)
+    before = treq.request_score_plain(torch.from_numpy(pop))
+    weights = {"capacity_constraint": 3.0, "minimize_distance": 0.25,
+               "late_arrival_penalty": 2.5}
+    if not tw:
+        weights.pop("late_arrival_penalty")
+    for req in (jreq, treq):
+        req.cotwin.score_calculator.set_constraint_weights(weights)
+    assert treq.cotwin.score_calculator.constraint_weights \
+        == jreq.cotwin.score_calculator.constraint_weights
+    want = np.asarray(jreq.request_score_plain(jnp.asarray(pop)))
+    got = treq.request_score_plain(torch.from_numpy(pop))
+    assert_leaf_equal(want, got, "reweighted scores")
+    assert not torch.equal(got, before)
+    np.testing.assert_array_equal(got[:, 2].numpy(),
+                                  0.25 * before[:, 2].numpy())
