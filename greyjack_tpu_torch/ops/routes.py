@@ -106,11 +106,11 @@ def vrp_routes_packed(sorted_vehicle_ids, sorted_customer_ids, dm_flat_milli,
     return sum_distance, sum_time_penalty
 
 
-def _seq_sum(values, init=None):
-    """Left-to-right sequential f64 fold over the last axis (Rust's
+def _seq_sum(values):
+    """Left-to-right sequential f64 fold from 0.0 over the last axis (Rust's
     `fold(0.0, +)`): one add per position, the leading axes in parallel."""
-    total = (torch.zeros(values.shape[:-1], dtype=values.dtype,
-                         device=values.device) if init is None else init)
+    total = torch.zeros(values.shape[:-1], dtype=values.dtype,
+                        device=values.device)
     for j in range(values.shape[-1]):
         total = total + values[..., j]
     return total

@@ -16,8 +16,8 @@ lands. `wall_ms` is measured after the device finished the chunk.
 
 Profiling: `Solver.solve(..., profile_dir=DIR)` captures a `torch.profiler`
 trace (host, and the card when the solve runs on one) of chunks
-[start_chunk, start_chunk + n_chunks) and writes it to DIR as a Chrome
-trace, `trace_chunks_<first>-<last>.json`.
+[PROFILE_START_CHUNK, PROFILE_START_CHUNK + PROFILE_N_CHUNKS) and writes it
+to DIR as a Chrome trace, `trace_chunks_<first>-<last>.json`.
 """
 
 from __future__ import annotations
@@ -26,6 +26,10 @@ import os
 import time
 
 import torch
+
+# the profiled window: chunks 2-4, past the first chunks' warm-up
+PROFILE_START_CHUNK = 2
+PROFILE_N_CHUNKS = 3
 
 
 class SolverMetrics:
@@ -62,12 +66,11 @@ class SolverMetrics:
 
 
 class ProfileCapture:
-    """A `torch.profiler` trace bounded to a window of chunks."""
+    """A `torch.profiler` trace bounded to the window of chunks above; it
+    records the card's activity too when `device`, the solve's, is one."""
 
-    def __init__(self, profile_dir, start_chunk=2, n_chunks=3, device="cpu"):
+    def __init__(self, profile_dir, device):
         self.profile_dir = profile_dir
-        self.start_chunk = start_chunk
-        self.n_chunks = n_chunks
         self.device = torch.device(device)
         self._prof = None
         self._first = None
@@ -77,7 +80,7 @@ class ProfileCapture:
         """Call once per chunk with the about-to-run chunk id."""
         if self.profile_dir is None or self._done:
             return
-        if self._prof is None and chunk_id >= self.start_chunk:
+        if self._prof is None and chunk_id >= PROFILE_START_CHUNK:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -85,7 +88,7 @@ class ProfileCapture:
             self._prof.start()
             self._first = chunk_id
         elif (self._prof is not None
-              and chunk_id >= self.start_chunk + self.n_chunks):
+              and chunk_id >= PROFILE_START_CHUNK + PROFILE_N_CHUNKS):
             self._stop(chunk_id - 1)
 
     def close(self, last_chunk=None):

@@ -179,7 +179,7 @@ class Solver:
                             alive=alive, chunk_id=chunk_id, best=best,
                             meta={"n_jobs": n_jobs, "seed": seed})
 
-        profiler = ProfileCapture(profile_dir, device=device)
+        profiler = ProfileCapture(profile_dir, device)
         if metrics is not None:
             metrics.start()
         moves_per_step = (kernel.moves_per_step
