@@ -7,7 +7,7 @@ NVIDIA GPU.
                                            # breakdowns of short solves
                                            # (int-delta, sweep, LA-random,
                                            # GA, TS-plain, LA-plain, LSHADE,
-                                           # mixed-int LSHADE)
+                                           # mixed-int LSHADE, TSP sweep)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -87,9 +87,33 @@ Phases, each fatal on failure:
      neighbours, 8 islands, 40 steps): a solve stopped when chunk 3's
      metrics land (its checkpoint holds chunks 0-2) and resumed from the
      file ends with the uninterrupted solve's score and values, bit for
-     bit; the delta kernel launches in both runs.
+     bit; the delta kernel launches in both runs;
+ 15. the TSP model at n=1000, seed 42 (`examples/tsp_example.py`'s
+     instance) on the card vs on the CPU, the same inputs made on the CPU,
+     bit-equal: the fast and exact plain scores of 1,024 permutation rows,
+     the delta ctx of 8 perturbed greedy tours, the `score_delta` rows of
+     an 8 x 1024 six-move neighbourhood, `update_ctx` of full-width
+     (reversal) winners, every array of the four sweep families and
+     `propose_from_targets`' outputs for 2 islands x 64 targets; then the
+     stage times on the card (families, proposal, `update_ctx` of a
+     full-width winner, `score_delta`) at 8 islands;
+ 16. TSP solves through `Solver.solve` at n=1000 (greedy start, 8 islands,
+     score_precision [3, 3], tabu rate 0.5): TabuSearch sweep (64
+     targets, 200 steps) and LateAcceptance sweep (64 targets, 200 steps)
+     must run path "sweep" with scored candidates > 0, TabuSearch random
+     (1024 neighbours, five move types, 100 steps) path "delta"; none may
+     launch the VRP delta kernel; each must return hard score 0, 999
+     unique stops, a tour no longer than the greedy one and a score equal
+     to a plain rescore rounded to [3, 3], bit for bit;
+ 17. N-Queens, 256 queens, seed 45 (`examples/nqueens_example.py`): the
+     plain scores of 1,024 rows, the ctx, the `score_delta` rows of 8 x 20
+     swap neighbourhoods and `update_ctx` card vs CPU, bit-equal; then
+     TabuSearch (20 swap neighbours, tabu 0, 8 islands) to
+     ScoreLimit(0), which must run path "delta" and return a board with
+     no conflict, and GA (8 x 128, 200 steps), path "plain", no worse than
+     the shuffled board.
 
-Cuts: phases 10-14 run 20-200 steps per solve (widths as configured).
+Cuts: phases 10-17 run 20-200 steps per solve (widths as configured).
 
 Phase 3 also holds the kernel's f64 score rows (`_post` of its blocks)
 bit-equal to those of the plain blocks and to the per-neighbour
@@ -125,6 +149,13 @@ GA_POP, PLAIN_NEIGHBOURS = 128, 2048
 # (`scripts/bench_mh.py:112-142`, `:177-179`)
 LSHADE_POP, MIXED_FLOATS, MIXED_INTS = 128, 50, 50
 DEVICE = "cuda"
+# the TSP example (`examples/tsp_example.py`) and the N-Queens example
+# (`examples/nqueens_example.py`)
+TSP_N, TSP_SEED, TSP_TARGETS, TSP_TABU = 1000, 42, 64, 0.5
+TSP_NEIGHBOURS, TSP_PRECISION = 1024, [3, 3]
+TSP_PROBAS = [0.0, 0.2, 0.2, 0.2, 0.2, 0.2]
+NQ_N, NQ_SEED, NQ_NEIGHBOURS = 256, 45, 20
+NQ_PROBAS = [0.0, 1.0, 0.0, 0.0, 0.0, 0.0]
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
 
@@ -1126,6 +1157,365 @@ def resume_phase(card, steps=40):
     rate_line("resume (uninterrupted)", card, recs, N_ISLANDS)
     return full_launches + resumed_launches
 
+# --- phases 15-17: the TSP and N-Queens models -------------------------------
+
+def same_trees(label, want, got, prefix=""):
+    """Fail unless every leaf of `got` (card) equals the leaf of `want`
+    (CPU) bit for bit, dtype and shape included; returns the leaf count."""
+    import torch
+
+    if isinstance(want, dict):
+        if set(want) != set(got):
+            fail(f"{label}: keys differ {set(want) ^ set(got)}")
+        return sum(same_trees(label, want[k], got[k], f"{prefix}/{k}")
+                   for k in want)
+    if isinstance(want, (list, tuple)):
+        return sum(same_trees(label, w, g, f"{prefix}[{i}]")
+                   for i, (w, g) in enumerate(zip(want, got)))
+    g = got.cpu()
+    if g.dtype != want.dtype or g.shape != want.shape \
+            or not torch.equal(g, want):
+        fail(f"{label}: {prefix} differs on the card ({g.dtype}"
+             f"{tuple(g.shape)} vs {want.dtype}{tuple(want.shape)})")
+    return 1
+
+
+def tsp_domain(dev=DEVICE):
+    from greyjack_tpu_torch.models.tsp import generate_uniform_instance
+    return generate_uniform_instance(TSP_N, seed=TSP_SEED, device=dev)
+
+
+def tsp_requester(dev=DEVICE, exact=False):
+    from greyjack_tpu_torch.models.tsp import CotwinBuilder
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    return ScoreRequester(CotwinBuilder(True, True, exact).build_cotwin(
+        tsp_domain(dev), False))
+
+
+def tsp_bases(req, n_isl, seed, n_moves=8):
+    """The greedy tour with a few seeded swaps per island, and a
+    duplicated stop on every other island."""
+    import numpy as np
+    import torch
+
+    init = req.variables_manager.initial_values.cpu().numpy()
+    out = []
+    for i in range(n_isl):
+        rng = np.random.default_rng(seed + i)
+        b = init.copy()
+        for _ in range(n_moves):
+            x, y = rng.integers(len(b), size=2)
+            b[x], b[y] = b[y], b[x]
+        if i % 2:
+            b[rng.integers(len(b))] = b[rng.integers(len(b))]
+        out.append(b)
+    return torch.from_numpy(np.stack(out))
+
+
+def reversal_winners(bases, seed):
+    """A full-width winner delta per island (width N, as the sweep emits):
+    the reversal of a random span of at least half the tour."""
+    import numpy as np
+    import torch
+
+    n_isl, n = bases.shape
+    rng = np.random.default_rng(seed)
+    pos = np.tile(np.arange(n, dtype=np.int32), (n_isl, 1))
+    vals = bases.numpy().copy()
+    valid = np.zeros((n_isl, n), bool)
+    for i in range(n_isl):
+        a = int(rng.integers(0, n // 2))
+        b = int(rng.integers(a + n // 2, n))
+        span = b - a + 1
+        pos[i, :span] = np.arange(a, b + 1)
+        vals[i, :span] = bases[i, a:b + 1].numpy()[::-1]
+        valid[i, :span] = True
+    return {"positions": torch.from_numpy(pos),
+            "values": torch.from_numpy(vals),
+            "valid": torch.from_numpy(valid)}
+
+
+def tsp_parity(card, seed=21):
+    """Phase 15: the TSP model on the card vs on the CPU at n=1000, the
+    same inputs made on the CPU and moved over; then the stage times."""
+    import numpy as np
+    import torch
+    from greyjack_tpu_torch.models.tsp import cotwin_builder as tcb
+    from greyjack_tpu_torch.models.tsp import sweep as tsw
+    from greyjack_tpu_torch.ops import moves
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    reqs = {dev: tsp_requester(dev) for dev in (DEVICE, "cpu")}
+    exact = {dev: tsp_requester(dev, exact=True) for dev in (DEVICE, "cpu")}
+    cpu = reqs["cpu"]
+    rng = np.random.default_rng(seed)
+    n = TSP_N - 1
+    rows = torch.from_numpy(np.stack(
+        [rng.permutation(np.arange(1, TSP_N)) for _ in range(1024)]
+    ).astype(np.float32))
+    bases = tsp_bases(cpu, N_ISLANDS, seed)
+    gens = island_generators(seed, N_ISLANDS, "cpu")
+    vm = cpu.variables_manager
+    mcfg = moves.MoverConfig(vm, TSP_TABU, None, None)      # six moves
+    deltas, _ = moves.move_population_delta(
+        gens, bases, TSP_NEIGHBOURS, vm, mcfg, mcfg.init_tabu_state(N_ISLANDS))
+    winners = reversal_winners(bases, seed)
+    t = TSP_TARGETS
+    sweep_in = (bases[:2],
+                torch.from_numpy(np.stack([rng.permutation(n)[:t]
+                                           for _ in range(2)]).astype(
+                                               np.int32)),
+                torch.from_numpy(rng.random((2, t)) < 0.9),
+                torch.from_numpy(rng.random((2, n)) < 0.2))
+    out = {}
+    for dev, req in reqs.items():
+        utils = req._delta_utils()
+        cfg = tsw.SweepConfig(req, t)
+        ctx = req.build_base_ctx(bases.to(dev))
+        b2, t_rows, t_valid, row_tabu = (x.to(dev) for x in sweep_in)
+        ctx2 = req.build_base_ctx(b2)
+        out[dev] = {
+            "plain_fast": req.request_score_plain(rows.to(dev)),
+            "plain_exact": exact[dev].request_score_plain(rows.to(dev)),
+            "ctx": ctx,
+            "score_delta": req.request_score_delta(
+                ctx, to_device(deltas, dev)),
+            "update_ctx": req.update_ctx(ctx, to_device(winners, dev)),
+            "families": tsw.score_candidates(ctx2, t_rows, t_valid,
+                                             row_tabu, cfg, utils),
+            "propose": tsw.propose_from_targets(ctx2, t_rows, t_valid,
+                                                row_tabu, cfg, utils),
+        }
+    torch.cuda.synchronize()
+    n_leaves = same_trees("tsp parity", out["cpu"], out[DEVICE])
+    want = out["cpu"]
+    # the rows are real: delta rows equal a plain rescore of the patched
+    # tours, the updated ctx is the patched tour's, the winners exist
+    patched = moves.apply_delta(bases, {k: v[:, 0] for k, v in
+                                        deltas.items()})
+    if not torch.equal(want["score_delta"][:, 0],
+                       cpu.request_score_plain(patched)):
+        fail("tsp parity: score_delta differs from a plain rescore")
+    rebuilt = cpu.build_base_ctx(moves.apply_delta(bases, winners))
+    same_trees("tsp parity (rebuilt ctx)", rebuilt, want["update_ctx"])
+    if (want["propose"][1][:, 0] == 2 ** 31 - 1).any():
+        fail("tsp parity: a sweep island found no valid candidate")
+    print(f"tsp parity: n={TSP_N}: fast and exact plain scores of 1024 "
+          f"permutation rows, the ctx of {N_ISLANDS} islands, score_delta "
+          f"rows of {N_ISLANDS} x {TSP_NEIGHBOURS} six-move neighbours (kd "
+          f"{deltas['positions'].shape[-1]}), update_ctx of full-width "
+          f"winners ({int(winners['valid'].sum(-1).min())}-"
+          f"{int(winners['valid'].sum(-1).max())} valid of {n}), the four "
+          f"sweep families and propose_from_targets for 2 islands x {t} "
+          f"targets: {n_leaves} arrays bit-equal, card vs CPU", flush=True)
+
+    # stage times on the card at the main path's shapes: 8 islands x 64
+    # targets, the whole-tour winner
+    req = reqs[DEVICE]
+    utils = req._delta_utils()
+    cfg = tsw.SweepConfig(req, t)
+    ctx = req.build_base_ctx(bases.to(DEVICE))
+    t_rows = torch.from_numpy(np.stack([rng.permutation(n)[:t]
+                                        for _ in range(N_ISLANDS)]).astype(
+                                            np.int32)).to(DEVICE)
+    t_valid = torch.ones((N_ISLANDS, t), dtype=torch.bool, device=DEVICE)
+    no_tabu = torch.zeros((N_ISLANDS, n), dtype=torch.bool, device=DEVICE)
+    delta, _, _, _ = tsw.propose_from_targets(ctx, t_rows, t_valid, no_tabu,
+                                              cfg, utils)
+    w = to_device(winners, DEVICE)
+    d_dev = to_device(deltas, DEVICE)
+    times = {
+        "score_candidates": cuda_ms(lambda: tsw.score_candidates(
+            ctx, t_rows, t_valid, no_tabu, cfg, utils), inner=5),
+        "propose_from_targets": cuda_ms(lambda: tsw.propose_from_targets(
+            ctx, t_rows, t_valid, no_tabu, cfg, utils), inner=5),
+        "update_ctx (full-width winner)": cuda_ms(
+            lambda: tcb.update_ctx(ctx, w, utils), inner=5),
+        "update_ctx (sweep winner)": cuda_ms(
+            lambda: tcb.update_ctx(ctx, delta, utils), inner=5),
+        "apply_delta (sweep winner)": cuda_ms(
+            lambda: moves.apply_delta(bases.to(DEVICE), delta), inner=5),
+        f"score_delta ({TSP_NEIGHBOURS} x kd 16)": cuda_ms(
+            lambda: req.request_score_delta(ctx, d_dev), inner=5),
+    }
+    print(f"tsp stage times [{card}], {N_ISLANDS} islands (event-timed, "
+          "median of 7 x 5 calls, host dispatch included): " + "; ".join(
+              f"{k} {v[0]:.4f} ms" for k, v in times.items()), flush=True)
+
+
+def tsp_agent(label, steps):
+    """Phase 16's agents at the TSP example's configuration
+    (`examples/tsp_example.py`): 64 sweep targets, tabu rate 0.5; the
+    random-move TabuSearch with 1024 neighbours and five move types."""
+    from greyjack_tpu_torch.agents import LateAcceptance, TabuSearch
+    from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
+
+    lim = StepsLimit(steps - 1)
+    if label == "TSP-TS-sweep":
+        return TabuSearch(TSP_NEIGHBOURS, TSP_TABU, True, None, TSP_PROBAS,
+                          CHUNK_STEPS, lim, sweep=True,
+                          sweep_targets=TSP_TARGETS)
+    if label == "TSP-LA-sweep":
+        return LateAcceptance(LA_SIZE, TSP_TABU, None, TSP_PROBAS,
+                              CHUNK_STEPS, lim, sweep=True,
+                              sweep_targets=TSP_TARGETS)
+    return TabuSearch(TSP_NEIGHBOURS, TSP_TABU, True, None, TSP_PROBAS,
+                      CHUNK_STEPS, lim)
+
+
+# phase 16: (label, steps, path)
+TSP_SOLVES = [("TSP-TS-sweep", 200, "sweep"), ("TSP-LA-sweep", 200, "sweep"),
+              ("TSP-TS-random", 100, "delta")]
+
+
+def tsp_solve(card, label, steps, path):
+    """Phase 16: one TSP solve through `Solver.solve` at n=1000 (greedy
+    start, 8 islands, score_precision [3, 3])."""
+    import torch
+    from greyjack_tpu_torch.agents.base import make_score_fn
+    from greyjack_tpu_torch.models.tsp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+
+    db = DomainBuilder.from_generator(tsp_domain)
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    t0 = time.perf_counter()
+    sol = Solver.solve(db, CotwinBuilder(True, True), tsp_agent(label, steps),
+                       N_ISLANDS, score_precision=TSP_PRECISION, seed=0,
+                       logging_level=SolverLoggingLevels.Silent,
+                       metrics=metrics)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {path}:
+        fail(f"{label}: the solve ran path(s) {paths}, not {path}")
+    steps_run = sum(r["steps"] for r in recs)
+    if steps_run < steps or recs[-1]["n_alive"] != 0:
+        fail(f"{label}: the solve ran {steps_run} steps")
+    if path == "sweep" and recs[-1]["sweep_scored"] <= 0:
+        fail(f"{label}: the sweep solve scored no candidate")
+    if dk._call_kernel.launches != 0:
+        fail(f"{label}: the solve launched the VRP delta kernel")
+    score = [sol[1]["hard_score"], sol[1]["soft_score"]]
+    domain = db.build_from_solution(sol)
+    if score[0] != 0.0 or domain.get_unique_stops_count() != TSP_N - 1:
+        fail(f"{label}: hard score {score[0]}, "
+             f"{domain.get_unique_stops_count()} unique stops")
+    req = tsp_requester()
+    values = torch.tensor([[v for _, v in sol[0]]], dtype=torch.float32,
+                          device=DEVICE)
+    rescored = make_score_fn(req, TSP_PRECISION)(values)[0].tolist()
+    if rescored != score:
+        fail(f"{label}: solve score {score} != rounded plain rescore "
+             f"{rescored}")
+    greedy = db.build_domain_from_scratch()
+    greedy.trip_path = req.variables_manager.initial_values.long().tolist()
+    start = make_score_fn(req, TSP_PRECISION)(
+        req.variables_manager.initial_values[None])[0].tolist()
+    if domain.get_travel_distance() > greedy.get_travel_distance():
+        fail(f"{label}: tour {domain.get_travel_distance()} is longer than "
+             f"the greedy tour's {greedy.get_travel_distance()}")
+    extra = (f", exact counter {recs[-1]['sweep_scored']} scored "
+             f"candidates" if path == "sweep" else "")
+    print(f"{label} solve: {steps_run} steps x {N_ISLANDS} islands in "
+          f"{solve_s:.3f} s, path {path}, VRP kernel launches 0{extra}; "
+          f"greedy start {start} -> best {score} (= rounded plain rescore), "
+          f"{domain.get_unique_stops_count()} unique stops, tour "
+          f"{domain.get_travel_distance():.3f} vs greedy "
+          f"{greedy.get_travel_distance():.3f}", flush=True)
+    rate_line(label, card, recs, N_ISLANDS)
+
+
+def nqueens_phase(card, seed=23):
+    """Phase 17: N-Queens at 256 queens, seed 45: the plain scores and the
+    ctx / score_delta rows of 8 x 20 swap neighbourhoods card vs CPU; the
+    example's TabuSearch to ScoreLimit(0); GA, 8 x 128, 200 steps."""
+    import numpy as np
+    import torch
+    from greyjack_tpu_torch.agents import GeneticAlgorithm, TabuSearch
+    from greyjack_tpu_torch.agents.termination_strategies import (
+        ScoreLimit, StepsLimit)
+    from greyjack_tpu_torch.models.nqueens import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.ops import moves
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.score_calculation.scores import SimpleScore
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    reqs = {dev: ScoreRequester(CotwinBuilder(True).build_cotwin(
+        DomainBuilder(NQ_N, NQ_SEED, device=dev).build_domain_from_scratch(),
+        False)) for dev in (DEVICE, "cpu")}
+    vm = reqs["cpu"].variables_manager
+    rng = np.random.default_rng(seed)
+    rows = torch.from_numpy(rng.integers(0, NQ_N, size=(1024, NQ_N)).astype(
+        np.float32))
+    bases = torch.from_numpy(np.stack([rng.permutation(NQ_N)
+                                       for _ in range(N_ISLANDS)]).astype(
+                                           np.float32))
+    gens = island_generators(seed, N_ISLANDS, "cpu")
+    mcfg = moves.MoverConfig(vm, 0.0, None, NQ_PROBAS)
+    deltas, _ = moves.move_population_delta(
+        gens, bases, NQ_NEIGHBOURS, vm, mcfg, mcfg.init_tabu_state(N_ISLANDS))
+    out = {}
+    for dev, req in reqs.items():
+        ctx = req.build_base_ctx(bases.to(dev))
+        d = to_device(deltas, dev)
+        out[dev] = {"plain": req.request_score_plain(rows.to(dev)),
+                    "ctx": ctx, "score_delta": req.request_score_delta(ctx, d),
+                    "update_ctx": req.update_ctx(
+                        ctx, {k: v[:, 0] for k, v in d.items()})}
+    torch.cuda.synchronize()
+    n_leaves = same_trees("nqueens parity", out["cpu"], out[DEVICE])
+    print(f"nqueens parity: {NQ_N} queens: plain scores of 1024 rows, the "
+          f"ctx, score_delta rows of {N_ISLANDS} x {NQ_NEIGHBOURS} swap "
+          f"neighbours and update_ctx: {n_leaves} arrays bit-equal, card vs "
+          f"CPU", flush=True)
+
+    db = DomainBuilder(NQ_N, NQ_SEED, device=DEVICE)
+    board0 = db.build_domain_from_scratch().conflict_count()
+    for label, agent, path in (
+            ("NQ-TS", TabuSearch(NQ_NEIGHBOURS, 0.0, True, None, NQ_PROBAS,
+                                 CHUNK_STEPS, ScoreLimit(SimpleScore(0.0))),
+             "delta"),
+            ("NQ-GA", GeneticAlgorithm(GA_POP, 0.5, 0.05, 0.0, None,
+                                       NQ_PROBAS, 0.1, CHUNK_STEPS,
+                                       StepsLimit(SOLVE_STEPS - 1)),
+             "plain")):
+        metrics = SolverMetrics()
+        dk._call_kernel.launches = 0
+        t0 = time.perf_counter()
+        sol = Solver.solve(db, CotwinBuilder(True), agent, N_ISLANDS, seed=0,
+                           logging_level=SolverLoggingLevels.Silent,
+                           metrics=metrics)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        recs = metrics.records
+        paths = {r["kernel_path"] for r in recs}
+        if paths != {path}:
+            fail(f"{label}: the solve ran path(s) {paths}, not {path}")
+        if dk._call_kernel.launches != 0:
+            fail(f"{label}: the solve launched the VRP delta kernel")
+        conflicts = db.build_from_solution(sol).conflict_count()
+        if conflicts != sol[1]["simple_value"]:
+            fail(f"{label}: score {sol[1]} but {conflicts} conflicts")
+        if label == "NQ-TS" and conflicts != 0:
+            fail(f"{label}: ended with {conflicts} conflicts")
+        if conflicts > board0:
+            fail(f"{label}: {conflicts} conflicts, worse than the shuffled "
+                 f"board's {board0}")
+        steps_run = sum(r["steps"] for r in recs)
+        print(f"{label} solve: {steps_run} steps x {N_ISLANDS} islands in "
+              f"{solve_s:.3f} s, path {path}; shuffled board {board0} "
+              f"conflicts -> {conflicts}", flush=True)
+        rate_line(label, card, recs, N_ISLANDS)
+
 
 def profile(out_dir, path, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
@@ -1133,10 +1523,11 @@ def profile(out_dir, path, n_chunks=3):
     random-move ("la-random", 512 islands), the GeneticAlgorithm ("ga", 8
     islands x 128), the plain TabuSearch ("ts-plain", 8 islands x 2048,
     six moves, full rescore), the plain LateAcceptance ("la-plain", 512
-    islands x 1) or the LSHADE ("lshade", 8 islands x 128) path, or of
+    islands x 1) or the LSHADE ("lshade", 8 islands x 128) path, of
     LSHADE on the mixed-int model ("mixedint-lshade", 50 floats + 50 ints,
-    8 islands x 128), with a labelled range around the step and each of
-    its stages."""
+    8 islands x 128), or of the TSP sweep ("tsp-sweep", phase 16's
+    TabuSearch: n=1000, 8 islands x 64 targets, [3, 3]), with a labelled
+    range around the step and each of its stages."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
@@ -1164,6 +1555,8 @@ def profile(out_dir, path, n_chunks=3):
         db, cb = mixed_builders()
         req = ScoreRequester(cb.build_cotwin(db.build_domain_from_scratch(),
                                              False))
+    elif path == "tsp-sweep":
+        req = tsp_requester()
     else:
         req = ScoreRequester(CotwinBuilder(
             path not in ("ts-plain", "la-plain"), True).build_cotwin(
@@ -1176,6 +1569,14 @@ def profile(out_dir, path, n_chunks=3):
                   (sw, "_swap_sweep", "step.sweep.family_c_swap"),
                   (sw, "_select_winner", "step.sweep.lex_select"),
                   (sw, "_exact_rescore", "step.sweep.exact_rescore")]
+    elif path == "tsp-sweep":
+        from greyjack_tpu_torch.models.tsp import sweep as tsw
+        stages = [(tsw, "sample_targets", "step.sweep.sample_targets"),
+                  (tsw, "tabu_rows", "step.sweep.tabu_rows"),
+                  (tsw, "score_candidates", "step.sweep.families"),
+                  (tsw, "propose_from_targets",
+                   "step.sweep.propose (families, select, decode)"),
+                  (moves, "apply_delta", "step.apply_delta")]
     elif plain:
         # the plain score is a bound method the kernel captures when it is
         # built: every stage is wrapped before the build
@@ -1212,6 +1613,10 @@ def profile(out_dir, path, n_chunks=3):
             kernel = lshade_agent(10 ** 9, mixed=path != "lshade"
                                   ).build_kernel(req)
             n_isl, want_path = N_ISLANDS, "plain"
+        elif path == "tsp-sweep":
+            kernel = tsp_agent("TSP-TS-sweep", 10 ** 9).build_kernel(
+                req, TSP_PRECISION)
+            n_isl, want_path = N_ISLANDS, "sweep"
         else:
             kernel = flagship_agent(10 ** 9, path == "sweep").build_kernel(
                 req)
@@ -1461,10 +1866,18 @@ def main(argv):
     # --- 11. checkpoint / resume (phase 14) -----------------------------------
     launches += resume_phase(card)
 
+    # --- 12. the TSP model (phases 15-16) -------------------------------------
+    tsp_parity(card)
+    for label, steps, path in TSP_SOLVES:
+        tsp_solve(card, label, steps, path)
+
+    # --- 13. N-Queens (phase 17) ----------------------------------------------
+    nqueens_phase(card)
+
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
         for path in ("int-delta", "sweep", "la-random", "ga", "ts-plain",
-                     "la-plain", "lshade", "mixedint-lshade"):
+                     "la-plain", "lshade", "mixedint-lshade", "tsp-sweep"):
             profile(out_dir, path)
 
     flag = shapes[0]

@@ -317,7 +317,8 @@ class RandomMoveStep:
 
 class SweepStep:
     """The parts every sweep kernel's step shares: the sweep winner of each
-    island (`models/vrp/sweep.py` `propose`), its exact score row, and the
+    island (the model's sweep module's `propose`: `models/vrp/sweep.py`,
+    `models/tsp/sweep.py`), its exact score row, and the
     bookkeeping after the accept rule — the winner's tabu push, the sweep
     counters, the island best and the step count, each frozen where
     `_active` is False (the sweep kernels are self-gating)."""

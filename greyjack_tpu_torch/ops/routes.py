@@ -1,11 +1,12 @@
-"""Route walks for VRP scoring (counterpart of `greyjack_tpu/ops/routes.py`).
+"""Tour and route walks for TSP / VRP scoring (counterpart of
+`greyjack_tpu/ops/routes.py`).
 
 Every function works on the last axis and broadcasts over leading axes (the
-population batch), so one call scores a whole population. The fast walk's
-distances are exact integer-milli sums (order-free) and its lateness is
-integer max-plus arithmetic; the exact walk (`vrp_routes`) folds the f64
-distances in the reference's sequential order. Both give rows bit-equal to
-the JAX package's.
+population batch), so one call scores a whole population. The fast walks'
+distances are exact integer-milli sums (order-free) and their lateness is
+integer max-plus arithmetic; the exact walks (`tour_distance`,
+`vrp_routes`) fold the f64 distances in the reference's sequential order.
+All give rows bit-equal to the JAX package's.
 """
 
 import torch
@@ -116,6 +117,41 @@ def _seq_sum(values):
     return total
 
 
+def tour_distance(stops, distance_matrix, depot=0):
+    """Closed-tour distance in the reference's f64 summation order
+    (tsp `plain_score_calculator.rs:73-76`):
+    (dm[depot, s0] + dm[s_last, depot]) + fold(0.0, chain legs).
+
+    stops: int[..., N] location ids; distance_matrix: f64[L, L]. Returns
+    f64[...]. The fold is `_seq_sum`, one add per chain leg."""
+    s = stops.long()
+    dm = distance_matrix
+    legs = dm[s[..., :-1], s[..., 1:]]
+    ends = dm[depot, s[..., 0]] + dm[s[..., -1], depot]
+    return ends + _seq_sum(legs)
+
+
+def tour_distance_fast(stops, dm_milli, depot=0, precision=3, dm_at=None,
+                       n_locations=None):
+    """Order-free closed-tour distance over the exact integer-milli matrix:
+    the legs summed in i64, divided once (`true_div`). Returns f64[...].
+
+    `dm_at` (optional): a flat-index accessor `int[...] -> i32[...]` used
+    instead of indexing `dm_milli` (the JAX package's partitioned-facts
+    mode passes one); it needs `n_locations`. Integer sums make the result
+    the same either way."""
+    s = stops.long()
+    if dm_at is None:
+        legs = dm_milli[s[..., :-1], s[..., 1:]]
+        ends = dm_milli[depot, s[..., 0]] + dm_milli[s[..., -1], depot]
+    else:
+        l = n_locations
+        legs = dm_at(s[..., :-1] * l + s[..., 1:])
+        ends = dm_at(depot * l + s[..., 0]) + dm_at(s[..., -1] * l + depot)
+    total = torch.sum(legs, dim=-1, dtype=torch.int64) + ends
+    return true_div(total.to(torch.float64), float(10 ** precision))
+
+
 def vrp_routes(sorted_vehicle_ids, sorted_customer_ids, distance_matrix,
                vehicle_depot_ids, num_vehicles, work_day_start=None,
                work_day_end=None, cust_rows=None):
@@ -188,4 +224,57 @@ def vrp_routes(sorted_vehicle_ids, sorted_customer_ids, distance_matrix,
     late = torch.clamp(post - ce, min=0)
     overtime = torch.where(is_last, torch.clamp(post - w1, min=0), 0)
     sum_time_penalty = torch.sum(late + overtime, dim=-1).to(torch.float64)
+    return sum_distance, sum_time_penalty
+
+
+def vrp_routes_fast(sorted_vehicle_ids, sorted_customer_ids, dm_milli,
+                    vehicle_depot_ids, num_vehicles, precision=3,
+                    work_day_start=None, work_day_end=None, tw_start=None,
+                    tw_end=None, service_time=None):
+    """Distance and time-window lateness of all routes with no sequential
+    loop, over stops stably sorted by vehicle (`sort_stops_by_vehicle`):
+    ids int[..., N]; per-vehicle `work_day_*` and per-location `tw_*` /
+    `service_time` int tables. Returns (sum_distance, sum_time_penalty),
+    f64[...] each.
+
+    Distance: exact integer-milli sums (equal to the sequential f64 fold
+    after the `score_precision` round). Lateness: the arrival recurrence
+    `a = max(a, tw_start) + service` as a max-plus prefix scan in i32, each
+    route's first stop resetting it to its work-day start; the penalty sum
+    widens to i64. `num_vehicles` is kept for API compatibility."""
+    v = sorted_vehicle_ids.long()
+    s = sorted_customer_ids.long()
+    lead = s.shape[:-1]
+    one = torch.ones(lead + (1,), dtype=torch.bool, device=s.device)
+    is_first = torch.cat([one, v[..., 1:] != v[..., :-1]], dim=-1)
+    is_last = torch.cat([v[..., :-1] != v[..., 1:], one], dim=-1)
+
+    depot_of_stop = vehicle_depot_ids.long()[v]
+    start_leg = torch.where(is_first, dm_milli[depot_of_stop, s], 0)
+    return_leg = torch.where(is_last, dm_milli[s, depot_of_stop], 0)
+    chain_leg = torch.cat(
+        [torch.zeros(lead + (1,), dtype=dm_milli.dtype, device=s.device),
+         torch.where(is_first[..., 1:], 0,
+                     dm_milli[s[..., :-1], s[..., 1:]])], dim=-1)
+    i64 = torch.int64
+    total_milli = torch.sum(start_leg.to(i64) + return_leg.to(i64)
+                            + chain_leg.to(i64), dim=-1)
+    sum_distance = true_div(total_milli.to(torch.float64),
+                            float(10 ** precision))
+    if tw_start is None:
+        return sum_distance, torch.zeros_like(sum_distance)
+
+    i32 = torch.int32
+    cs = tw_start[s].to(i32)
+    ce = tw_end[s].to(i32)
+    ct = service_time[s].to(i32)
+    w0 = work_day_start[v].to(i32)
+    w1 = work_day_end[v].to(i32)
+    adds = torch.where(is_first, -(1 << 30), ct).to(i32)
+    floors = torch.where(is_first, torch.maximum(w0, cs) + ct, cs + ct)
+    post = _maxplus_scan(adds, floors)
+    late = torch.clamp(post - ce, min=0)
+    overtime = torch.where(is_last, torch.clamp(post - w1, min=0), 0)
+    sum_time_penalty = torch.sum((late + overtime).to(i64),
+                                 dim=-1).to(torch.float64)
     return sum_distance, sum_time_penalty

@@ -17,6 +17,31 @@ def count_minus_n_unique(values, num_buckets=None):
     return (n - n_unique).to(torch.float64)
 
 
+def _bincount(values, length):
+    """i64[..., length] value histogram along the last axis, as
+    `jnp.bincount(values, length=length)` counts: negative values count
+    at 0, values >= length are dropped (they land on a sentinel bucket
+    that is cut off)."""
+    v = torch.clamp(values.long(), min=0)
+    v = torch.where(v < length, v, length)
+    out = torch.zeros(values.shape[:-1] + (length + 1,), dtype=torch.int64,
+                      device=values.device)
+    return out.scatter_add_(-1, v, torch.ones_like(v))[..., :length]
+
+
+def n_unique(values, num_buckets):
+    """Distinct values along the last axis, i64[...], counted from a
+    histogram of `num_buckets` buckets (values as `_bincount` counts
+    them)."""
+    return torch.sum(_bincount(values, num_buckets) > 0, dim=-1)
+
+
+def segment_count(segment_ids, num_segments):
+    """Occurrences of each segment id along the last axis,
+    i64[..., num_segments]."""
+    return _bincount(segment_ids, num_segments)
+
+
 def segment_sum(values, segment_ids, num_segments):
     """Sum `values` [..., N] per segment id along the last axis ->
     [..., num_segments] (same dtype). Integer sums are exact whatever order
@@ -52,3 +77,24 @@ def nunique_delta(counts, old_vals, new_vals, valid):
     mask = ~earlier_dup & (vals < l)
     return torch.sum(torch.where(mask, contrib, 0), dim=-1,
                      dtype=torch.int32)
+
+
+def overflow_penalty(demands, segment_ids, capacities, num_segments):
+    """Capacity-overflow penalty along the last axis: the sum over segments
+    of max(0, load - capacity), f64[...]. Integer loads sum exactly in
+    i64 (the JAX package's x64 sum)."""
+    loads = segment_sum(demands, segment_ids, num_segments)
+    over = torch.clamp(loads - capacities, min=0)
+    return torch.sum(over, dim=-1).to(torch.float64)
+
+
+def scatter_drop(x, idx, vals, add=False):
+    """x [I, W] with `vals` written (with `add`, summed) at `idx` (int[I, K])
+    along axis 1, an index equal to W dropping its write: the writes go to
+    a sentinel column that is cut off, as the JAX package's
+    `.at[].set / .add(mode="drop")` drops them. The kept indices of a
+    write must be distinct; integer adds are exact with repeats."""
+    pad = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+    out = torch.cat([x, pad], dim=1)
+    write = out.scatter_add_ if add else out.scatter_
+    return write(1, idx.long(), vals.to(x.dtype))[:, :x.shape[1]]

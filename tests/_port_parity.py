@@ -338,3 +338,89 @@ def stack_leaves(trees):
     if isinstance(trees[0], dict):
         return {k: stack_leaves([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _freeze(cotwin, group, col, rows):
+    for r in rows:
+        getattr(cotwin.planning_entities[group][r], col).frozen = True
+    return cotwin
+
+
+def tsp_pair(n=24, seed=3, greedy=True, exact=False, incremental=True,
+             frozen_rows=()):
+    """(jax_requester, torch_requester, jax_domain, torch_domain) of one
+    uniform TSP instance built by both packages from the same seed (the
+    port's on the CPU). `frozen_rows` pins those tour positions (frozen
+    variables leave the semantic group, so the sweep's slot maps differ
+    from the rows)."""
+    from greyjack_tpu.models.tsp import (CotwinBuilder as JTSPCotwin,
+                                         generate_uniform_instance as jgen)
+    from greyjack_tpu_torch.models.tsp import (
+        CotwinBuilder as TTSPCotwin, generate_uniform_instance as tgen)
+
+    jd = jgen(n, seed=seed)
+    td = tgen(n, seed=seed, device="cpu")
+    args = (incremental, greedy, exact)
+    jc = _freeze(JTSPCotwin(*args).build_cotwin(jd, False), "path_stops",
+                 "locations_vec_id", frozen_rows)
+    tc = _freeze(TTSPCotwin(*args).build_cotwin(td, False), "path_stops",
+                 "locations_vec_id", frozen_rows)
+    return JScoreRequester(jc), TScoreRequester(tc), jd, td
+
+
+def perturbed_tours(jreq, n_isl=2, seed=7, n_moves=6):
+    """f32[I, N] bases: the requester's initial (greedy) tour with a few
+    seeded swaps per island, and a duplicated stop on odd islands."""
+    rng = np.random.default_rng(seed)
+    init = np.asarray(jreq.variables_manager.initial_values)
+    out = []
+    for i in range(n_isl):
+        b = init.copy()
+        for _ in range(n_moves):
+            x, y = rng.integers(len(b), size=2)
+            b[x], b[y] = b[y], b[x]
+        if i % 2:
+            b[3] = b[7]
+        out.append(b)
+    return np.stack(out).astype(np.float32)
+
+
+def base_ctxs(jreq, treq, bases):
+    """(per-island JAX ctxs, the port's batched ctx) of f[I, V] bases."""
+    import jax.numpy as jnp
+
+    return ([jreq.build_base_ctx(jnp.asarray(b)) for b in bases],
+            treq.build_base_ctx(torch.from_numpy(bases)))
+
+
+def nqueens_pair(n=16, seed=45, incremental=True):
+    """(jax_requester, torch_requester, jax_board, torch_board) of one
+    seeded N-Queens board built by both packages (the port's on the
+    CPU)."""
+    from greyjack_tpu.models.nqueens import (DomainBuilder as JNQDomain,
+                                             CotwinBuilder as JNQCotwin)
+    from greyjack_tpu_torch.models.nqueens import (
+        DomainBuilder as TNQDomain, CotwinBuilder as TNQCotwin)
+
+    jb = JNQDomain(n, seed).build_domain_from_scratch()
+    tb = TNQDomain(n, seed, device="cpu").build_domain_from_scratch()
+    return (JScoreRequester(JNQCotwin(incremental).build_cotwin(jb, False)),
+            TScoreRequester(TNQCotwin(incremental).build_cotwin(tb, False)),
+            jb, tb)
+
+
+def jax_tsp_sweep_targets(key, free, jcfg):
+    """The target rows and validity the JAX TSP `sweep.propose` draws from
+    `key` for one island (`greyjack_tpu/models/tsp/sweep.py:245-252`)."""
+    import jax.numpy as jnp
+
+    free_list, free_count = free
+    fc = free_count[jcfg.g0]
+    lmax = jcfg.group_lmax
+    t = jcfg.targets
+    keys_rnd = jax.random.uniform(key, (lmax,), jnp.float32) \
+        + jnp.where(jnp.arange(lmax) < fc, 0.0, 2.0)
+    order = jnp.argsort(keys_rnd)[:t]
+    t_valid = jnp.arange(t, dtype=jnp.int32) < fc
+    t_rows = jcfg.row_of_slot[free_list[jcfg.g0][order]]
+    return np.asarray(t_rows), np.asarray(t_valid)

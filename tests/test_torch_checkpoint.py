@@ -19,6 +19,8 @@ from greyjack_tpu_torch.agents.base import make_score_fn
 from greyjack_tpu_torch.agents.termination_strategies import StepsLimit
 from greyjack_tpu_torch.models.mixedint import (CotwinBuilder as MICotwin,
                                                 DomainBuilder as MIDomain)
+from greyjack_tpu_torch.models.nqueens import (CotwinBuilder as NQCotwin,
+                                               DomainBuilder as NQDomain)
 from greyjack_tpu_torch.models.vrp import (CotwinBuilder, DomainBuilder,
                                            generate_instance)
 from greyjack_tpu_torch.score_calculation.score_requesters import (
@@ -117,13 +119,22 @@ class _StopAfter:
             raise _Stop
 
 
-@pytest.mark.parametrize("case", ["ts-int-delta", "lshade-mixedint"])
+@pytest.mark.parametrize("case", ["ts-int-delta", "lshade-mixedint",
+                                  "ts-nqueens"])
 def test_resumed_solve_equals_uninterrupted(tmp_path, case):
     if case == "ts-int-delta":
         db, cb = _db(), CotwinBuilder(True, True)
 
         def agent():
             return _agent(29)
+    elif case == "ts-nqueens":
+        # the JAX package's `tests/test_checkpoint.py` configuration: swap
+        # moves, tabu 0, on the delta path of a model with no f64 ctx score
+        db, cb = NQDomain(12, 45, device="cpu"), NQCotwin(True)
+
+        def agent():
+            return TabuSearch(16, 0.0, True, None, [0, 1, 0, 0, 0, 0], 5,
+                              StepsLimit(29))
     else:
         db = MIDomain(3, 3, -5.12, 5.12, "rastrigin", device="cpu")
         cb = MICotwin()

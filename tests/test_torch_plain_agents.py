@@ -157,3 +157,45 @@ def test_six_move_tabu_runs_the_f64_delta_path():
     assert req.request_score_plain(torch.from_numpy(values))[0].tolist() \
         == [sol[1]["hard_score"], sol[1]["medium_score"],
             sol[1]["soft_score"]]
+
+
+def _nq_initial_conflicts(n):
+    from greyjack_tpu_torch.models.nqueens import DomainBuilder as NQDomain
+    return NQDomain(n, 45, device="cpu").build_domain_from_scratch(
+    ).conflict_count()
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+@pytest.mark.parametrize("name", ["LA", "SA", "SA-auto"])
+def test_nqueens_local_search_improves(name, incremental):
+    """Twins of `tests/test_metaheuristics.py:27-53` on N-Queens (swap
+    moves only): LateAcceptance, SimulatedAnnealing with cooling and with
+    the auto temperature improve on the shuffled board, on the delta
+    cotwin (path "delta": a model with integer totals and no f64 ctx
+    score) and on the plain one (path "plain"); the returned score is the
+    returned board's conflict count."""
+    from greyjack_tpu_torch.models.nqueens import (CotwinBuilder as NQCotwin,
+                                                   DomainBuilder as NQDomain)
+
+    swap = [0.0, 1.0, 0.0, 0.0, 0.0, 0.0]
+    n, seed, agent = {
+        "LA": (12, 2, lambda: LateAcceptance(16, 0.2, None, swap, 10,
+                                             StepsLimit(200))),
+        "SA": (12, 8, lambda: SimulatedAnnealing([1.0], 0.999, 0.0, None,
+                                                 swap, 10, StepsLimit(200))),
+        "SA-auto": (10, 9, lambda: SimulatedAnnealing(
+            [1.0], None, 0.0, None, swap, 5, StepsLimit(60))),
+    }[name]
+    db = NQDomain(n, 45, device="cpu")
+    metrics = SolverMetrics()
+    sol = Solver.solve(db, NQCotwin(incremental), agent(), n_jobs=2,
+                       logging_level=SolverLoggingLevels.Silent, seed=seed,
+                       metrics=metrics)
+    assert {r["kernel_path"] for r in metrics.records} == {
+        "delta" if incremental else "plain"}
+    final = sol[1]["simple_value"]
+    if name == "SA-auto":
+        assert final <= _nq_initial_conflicts(n)
+    else:
+        assert final < _nq_initial_conflicts(n)
+    assert final == db.build_from_solution(sol).conflict_count()
