@@ -111,9 +111,37 @@ Phases, each fatal on failure:
      TabuSearch (20 swap neighbours, tabu 0, 8 islands) to
      ScoreLimit(0), which must run path "delta" and return a board with
      no conflict, and GA (8 x 128, 200 steps), path "plain", no worse than
-     the shuffled board.
+     the shuffled board;
+ 18. the mesh on the card: a 1-rank NCCL world (`init_distributed` with a
+     `file://` store in a temporary directory); the int-delta flagship
+     (4096 neighbours, 8 islands, 200 steps), the sweep flagship (256
+     targets, 200 steps) and GA (8 x 128, 50 steps) through
+     `Solver.solve(mesh=...)`, each equal to the mesh=None solve of the
+     same seed, bit for bit (score, values and every chunk's global best;
+     phases 4 and 7 are the int-delta and sweep references), each on its
+     path, the int-delta one launching the kernel; their rates beside the
+     mesh=None rates and the migration + global-reduce time a chunk (CUDA
+     events around `_ring` and `_update_global`) beside the mesh=None
+     solves' (phases 4 and 7 carry the same clock);
+ 19. the partitioned plain score at F = 1 of 1,024 rows of the flagship
+     and of the TSP at n=1000, bit-equal to the dense score, both timed;
+ 20. the service: the flagship's task JSON POSTed to `HttpBroker(port=0)`,
+     `SolverService.serve_one` with the sweep TabuSearch (30 steps,
+     score_precision [0, 0, 3]); at least one solution streamed over HTTP,
+     the final score equal to a rounded plain rescore, "Solving finished"
+     published;
+ 21. native IO: the flagship written as a `.vrp` file and the TSP at
+     n=1000 as a `.tsp` file; the g++ tokenizer must build, and its reads
+     equal the Python scans and the generated instances; a 20-step
+     int-delta solve from `DomainBuilder(vrp_file_path)`, `print_metrics`;
+ 22. `entry()`'s step on the card equal to the CPU's, and
+     `dryrun_multichip(1)` (its three legs) on the 1-rank world.
 
 Cuts: phases 10-17 run 20-200 steps per solve (widths as configured).
+
+Phases 18-22 need one card. The mesh's collectives run here on a world of
+one rank (NCCL refuses two ranks on one GPU): a run over several cards is
+not verified by this script, and it claims nothing about one.
 
 Phase 3 also holds the kernel's f64 score rows (`_post` of its blocks)
 bit-equal to those of the plain blocks and to the per-neighbour
@@ -503,8 +531,9 @@ def sweep_solve(card):
 
     metrics = SolverMetrics()
     t0 = time.perf_counter()
-    sol = solve_flagship(SOLVE_STEPS, metrics, sweep=True)
-    torch.cuda.synchronize()
+    with CollectiveClock() as clock:
+        sol = solve_flagship(SOLVE_STEPS, metrics, sweep=True)
+        torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     recs = metrics.records
     paths = {r["kernel_path"] for r in recs}
@@ -532,6 +561,7 @@ def sweep_solve(card):
           f"counter {scored} scored candidates, {nonconv} non-converged "
           f"({100.0 * nonconv / scored:.3f}%); chunk ms "
           f"{[r['wall_ms'] for r in recs]}", flush=True)
+    return sol, recs, clock.total_ms() / len(recs)
 
 
 def mh_solve(card, name, sweep):
@@ -1517,6 +1547,401 @@ def nqueens_phase(card, seed=23):
         rate_line(label, card, recs, N_ISLANDS)
 
 
+# --- phases 18-22: the mesh, partitioned facts, service, native IO, entry ----
+
+class CollectiveClock:
+    """CUDA events around the runner's migration (`_ring`: the ring's
+    boundary all_gather and the shift) and global reduce (`_update_global`:
+    the tops' all_gather, the reduce and the adoption) while active; the
+    summed device ms are read after the solve."""
+
+    def __init__(self):
+        from greyjack_tpu_torch.parallel import IslandRunner
+        self.cls = IslandRunner
+        self.orig = {name: getattr(IslandRunner, name)
+                     for name in ("_ring", "_update_global")}
+        self.pairs = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(name):
+            orig = self.orig[name]
+
+            def fn(runner, *a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = orig(runner, *a, **k)
+                end.record()
+                self.pairs.append((start, end))
+                return out
+            return fn
+
+        for name in self.orig:
+            setattr(self.cls, name, timed(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+    def total_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def steady_rate(recs):
+    steady = recs[1:] or recs
+    wall = sum(r["wall_ms"] for r in steady) / 1e3
+    return sum(r["moves"] for r in steady) / wall if wall > 0 else 0.0
+
+
+def mesh_solve(card, mesh, label, agent, n_isl, want, want_recs, want_coll,
+               path):
+    """One flagship solve through `Solver.solve(mesh=...)`: it must equal
+    the `mesh=None` solve of the same seed (`want`, its records and its
+    migration + global reduce ms a chunk), report `path`, and return the
+    kernel launches it made."""
+    import torch
+    import torch.distributed as dist
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+
+    metrics = SolverMetrics()
+    dk._call_kernel.launches = 0
+    with CollectiveClock() as clock:
+        sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
+                           CotwinBuilder(True, True), agent, n_isl, seed=0,
+                           logging_level=SolverLoggingLevels.Silent,
+                           metrics=metrics, mesh=mesh)
+        torch.cuda.synchronize()
+        coll_ms = clock.total_ms()
+    launches = dk._call_kernel.launches
+    recs = metrics.records
+    paths = {r["kernel_path"] for r in recs}
+    if paths != {path}:
+        fail(f"mesh {label}: the solve ran path(s) {paths}, not {path}")
+    if sol != want:
+        fail(f"mesh {label}: the solve {sol[1]} differs from the mesh=None "
+             f"solve {want[1]} (score or values)")
+    if [r["global_best"] for r in recs] != [r["global_best"]
+                                           for r in want_recs]:
+        fail(f"mesh {label}: the chunks' global bests differ from mesh=None")
+    score, _ = check_solution(sol, f"mesh {label}")
+    print(f"mesh {label}: {len(recs)} chunks x {n_isl} islands on a "
+          f"{mesh.size}-rank {dist.get_backend()} world, path {path}, kernel launches {launches}; score "
+          f"{score} and {len(sol[0])} values equal the mesh=None solve's, "
+          f"bit for bit, and so do all {len(recs)} chunks' global bests",
+          flush=True)
+    print(f"mesh {label} rate [{card}]: {steady_rate(recs):.1f} scored "
+          f"moves/s without chunk 0 (mesh=None in this run: "
+          f"{steady_rate(want_recs):.1f}); migration + global reduce "
+          f"{coll_ms / len(recs):.4f} ms a chunk (mesh=None: "
+          f"{want_coll:.4f}; CUDA events, {len(clock.pairs)} spans); chunk "
+          f"ms "
+          f"{[r['wall_ms'] for r in recs]}", flush=True)
+    return launches
+
+
+def mesh_phase(card, mesh, int_delta, sweep):
+    """Phase 18: the int-delta, sweep and GA flagship solves through
+    `Solver.solve(mesh=...)` on a 1-rank NCCL world, each equal to the
+    mesh=None solve of the same seed (phases 3 and 7 for the first two);
+    returns the delta kernel's launches."""
+    import torch.distributed as dist
+    from greyjack_tpu_torch.solver import SolverMetrics
+
+    want_backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if dist.get_backend() != want_backend or mesh.device.type != DEVICE:
+        fail(f"phase 18: the mesh runs {dist.get_backend()} on "
+             f"{mesh.device}, not {want_backend} on {DEVICE}")
+    launches = mesh_solve(card, mesh, "int-delta", flagship_agent(SOLVE_STEPS),
+                          N_ISLANDS, *int_delta, "int-delta")
+    if launches <= 0 and DEVICE == "cuda":
+        fail("mesh int-delta: the solve never launched the delta kernel")
+    mesh_solve(card, mesh, "sweep", flagship_agent(SOLVE_STEPS, sweep=True),
+               N_ISLANDS, *sweep, "sweep")
+    ga_metrics = SolverMetrics()
+    with CollectiveClock() as clock:
+        ga = solve_flagship(None, ga_metrics, agent=plain_agent("GA", 50))
+        ga_coll = clock.total_ms() / len(ga_metrics.records)
+    mesh_solve(card, mesh, "GA", plain_agent("GA", 50), N_ISLANDS, ga,
+               ga_metrics.records, ga_coll, "plain")
+    return launches
+
+
+def partitioned_phase(card, mesh):
+    """Phase 19: the partitioned plain score at F = 1 (this rank's facts
+    group alone) of 1,024 rows of the flagship and of the TSP at n=1000,
+    bit-equal to the dense score, each timed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder
+    from greyjack_tpu_torch.ops import partitioned
+    from greyjack_tpu_torch.parallel.mesh import make_island_mesh
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    grid = make_island_mesh(group=mesh.group, facts=1)
+    vreq = ScoreRequester(CotwinBuilder(True, True).build_cotwin(
+        flagship_domain(), False))
+    gen = island_generators(19, 1, DEVICE)[0]
+    vrows = vreq.variables_manager.sample_variables(gen, 1024)
+    rng = np.random.default_rng(19)
+    trows = torch.from_numpy(np.stack(
+        [rng.permutation(np.arange(1, TSP_N)) for _ in range(1024)]
+    ).astype(np.float32)).to(DEVICE)
+    for label, req, rows in (("VRP flagship", vreq, vrows),
+                             ("TSP n=1000", tsp_requester(), trows)):
+        fn = req.partitioned_plain_score_fn(grid.facts_group)
+        dm = req.cotwin.score_calculator.utility_objects[
+            "distance_matrix_milli"]
+        block, _ = partitioned.shard_rows_flat(dm, 1)
+        got = fn(block, rows)
+        want = req.request_score_plain(rows)
+        if got.dtype != torch.float64 or not torch.equal(got, want):
+            fail(f"partitioned {label}: the partitioned score differs from "
+                 "the dense one")
+        p_ms, p_all = cuda_ms(lambda: fn(block, rows), inner=3)
+        d_ms, d_all = cuda_ms(lambda: req.request_score_plain(rows), inner=3)
+        print(f"partitioned {label} [{card}]: 1024 rows, F = 1 on a 1-rank "
+              f"{dist.get_backend()} facts group, bit-equal to the dense score; partitioned "
+              f"{p_ms:.4f} ms a call (runs {[round(t, 4) for t in p_all]}), "
+              f"dense {d_ms:.4f} ms (runs {[round(t, 4) for t in d_all]})",
+              flush=True)
+
+
+def service_phase(card):
+    """Phase 20: the flagship's task JSON POSTed to `HttpBroker(port=0)`,
+    solved by `SolverService.serve_one` with the sweep TabuSearch (3
+    chunks), its solutions streamed back over HTTP."""
+    import json
+    import urllib.request
+    import warnings
+    import torch
+    from greyjack_tpu_torch.service import HttpBroker, SolverService
+    from greyjack_tpu_torch.service.solver_service import domain_to_task_json
+    from greyjack_tpu_torch.utils.math_utils import round_decimal_t
+    from greyjack_tpu_torch.solver import SolverLoggingLevels
+
+    broker = HttpBroker(port=0)
+    try:
+        base = f"http://127.0.0.1:{broker.port}"
+        task = domain_to_task_json(flagship_domain())
+        req = urllib.request.Request(f"{base}/tasks",
+                                     data=json.dumps(task).encode(),
+                                     method="POST")
+        if urllib.request.urlopen(req, timeout=30).status != 202:
+            fail("service: the broker refused the task")
+        service = SolverService(
+            broker, lambda: flagship_agent(3 * CHUNK_STEPS, sweep=True),
+            n_jobs=N_ISLANDS, logging_level=SolverLoggingLevels.Silent,
+            seed=0, device=DEVICE)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            final = service.serve_one(timeout=30)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        if final is None:
+            fail("service: serve_one took no task")
+        streamed = []
+        while True:
+            got = json.loads(urllib.request.urlopen(f"{base}/solutions",
+                                                    timeout=60).read())
+            streamed.append(got)
+            if got == "Solving finished" or len(streamed) > 100:
+                break
+    finally:
+        broker.close()
+    if streamed[-1] != "Solving finished":
+        fail("service: no 'Solving finished' marker")
+    solutions = [s for s in streamed if isinstance(s, dict)]
+    if not solutions or solutions[-1]["solution"] != final:
+        fail(f"service: {len(solutions)} solutions streamed, the last not "
+             "the returned one")
+    values = torch.tensor([[v for _, v in final[0]]], dtype=torch.float32,
+                          device=DEVICE)
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    rescore_req = ScoreRequester(CotwinBuilder(True, False).build_cotwin(
+        flagship_domain(), False))
+    row = round_decimal_t(rescore_req.request_score_plain(values),
+                          [0, 0, 3])[0].tolist()
+    score = [final[1]["hard_score"], final[1]["medium_score"],
+             final[1]["soft_score"]]
+    if score != row:
+        fail(f"service: score {score} != rounded plain rescore {row}")
+    print(f"service [{card}]: task POSTed to HttpBroker on port "
+          f"{broker.port}, TabuSearch sweep {3 * CHUNK_STEPS} steps x "
+          f"{N_ISLANDS} islands, score_precision [0, 0, 3], served in "
+          f"{solve_s:.3f} s; {len(solutions)} solutions streamed over HTTP, "
+          f"then 'Solving finished'; final score {score} = rounded plain "
+          f"rescore; last distance {solutions[-1]['sum_travel_distance']}",
+          flush=True)
+
+
+def write_vrp(domain, path):
+    """A `.vrp` file of a generated plan, coordinates written with repr so
+    they read back exactly."""
+    lines = [f"NAME : {domain.name}", "TYPE : CVRP",
+             f"DIMENSION : {len(domain.customers_vec)}",
+             "EDGE_WEIGHT_TYPE : EUC_2D",
+             f"CAPACITY : {domain.vehicles[0].capacity}",
+             "NODE_COORD_SECTION"]
+    lines += [f"{c.id} {c.latitude!r} {c.longitude!r}"
+              for c in domain.customers_vec]
+    lines.append("DEMAND_SECTION")
+    lines += [f"{c.id} {c.demand} {c.time_window_start} {c.time_window_end} "
+              f"{c.service_time}" for c in domain.customers_vec]
+    lines += ["DEPOT_SECTION"] + [str(d.id) for d in domain.depot_vec]
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["-1", "EOF", ""]))
+
+
+def write_tsp(domain, path):
+    lines = [f"NAME : {domain.name}", "TYPE : TSP",
+             f"DIMENSION : {len(domain.locations_vec)}",
+             "EDGE_WEIGHT_TYPE : EUC_2D", "NODE_COORD_SECTION"]
+    lines += [f"{lc.id} {lc.latitude!r} {lc.longitude!r}"
+              for lc in domain.locations_vec]
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["EOF", ""]))
+
+
+def same_plans(label, a, b):
+    import torch
+
+    def rows(plan):
+        return [(c.id, c.vec_id, c.latitude, c.longitude, c.name, c.demand,
+                 c.time_window_start, c.time_window_end, c.service_time)
+                for c in plan.customers_vec]
+
+    if rows(a) != rows(b) or a.name != b.name \
+            or [(v.depot_vec_id, v.capacity, v.work_day_end)
+                for v in a.vehicles] != [(v.depot_vec_id, v.capacity,
+                                          v.work_day_end) for v in b.vehicles]:
+        fail(f"native IO: {label}: the plans differ")
+    if not torch.equal(a.distance_matrix, b.distance_matrix):
+        fail(f"native IO: {label}: the distance matrices differ")
+
+
+def native_phase(card):
+    """Phase 21: the flagship as a `.vrp` file and the TSP at n=1000 as a
+    `.tsp` file: the native tokenizer must build; its reads must equal the
+    Python scans and the generated instances; then a 20-step int-delta
+    solve from `DomainBuilder(vrp_file_path)` with `print_metrics`.
+    Returns the delta kernel's launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from greyjack_tpu_torch.models.tsp import DomainBuilder as TspBuilder
+    from greyjack_tpu_torch.models.tsp import domain as tsp_dom
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.models.vrp import domain as vrp_dom
+    from greyjack_tpu_torch.native import gjio, native_available
+    from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
+                                           SolverMetrics)
+
+    t0 = time.perf_counter()
+    if not native_available():
+        fail("native IO: the g++ tokenizer did not build")
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="gj_native_")
+    try:
+        vrp_path = os.path.join(tmp, "flagship.vrp")
+        tsp_path = os.path.join(tmp, "tsp1000.tsp")
+        flag = flagship_domain()
+        write_vrp(flag, vrp_path)
+        write_tsp(tsp_domain(), tsp_path)
+        parsed = gjio.parse_instance(vrp_path)
+        if parsed is None or len(parsed["ids"]) != len(flag.customers_vec):
+            fail("native IO: the tokenizer did not read the flagship file")
+        t0 = time.perf_counter()
+        native = vrp_dom.read_vrp_file(vrp_path, device=DEVICE)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scanned = vrp_dom.scan_vrp_file(vrp_path, device=DEVICE)
+        scan_s = time.perf_counter() - t0
+        same_plans("flagship native vs scan", native, scanned)
+        same_plans("flagship native vs generated", native, flag)
+        meta, locs, matrix = tsp_dom.read_tsp_file(tsp_path)
+        smeta, slocs, smatrix = tsp_dom.scan_tsp_file(tsp_path)
+        if meta != smeta or matrix is not None or smatrix is not None or [
+                (lc.id, lc.latitude, lc.longitude) for lc in locs] != [
+                (lc.id, lc.latitude, lc.longitude) for lc in slocs]:
+            fail("native IO: the TSP reads differ")
+        tdom = TspBuilder(tsp_path, device=DEVICE).build_domain_from_scratch()
+        if not torch.equal(tdom.distance_matrix, tsp_domain().distance_matrix):
+            fail("native IO: the TSP file's matrix differs from the "
+                 "generated one")
+        metrics = SolverMetrics()
+        dk._call_kernel.launches = 0
+        builder = DomainBuilder(vrp_path, device=DEVICE)
+        sol = Solver.solve(builder, CotwinBuilder(True, True),
+                           flagship_agent(20), N_ISLANDS, seed=0,
+                           logging_level=SolverLoggingLevels.Silent,
+                           metrics=metrics)
+        torch.cuda.synchronize()
+        launches = dk._call_kernel.launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            builder.build_from_solution(sol).print_metrics()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if {r["kernel_path"] for r in metrics.records} != {"int-delta"} \
+            or (launches <= 0 and DEVICE == "cuda"):
+        fail(f"native IO: the file solve ran "
+             f"{ {r['kernel_path'] for r in metrics.records} } with "
+             f"{launches} kernel launches")
+    score, _ = check_solution(sol, "native IO")
+    print(f"native IO [{card}]: g++ tokenizer {os.path.basename(gjio.library_path())} "
+          f"ready in {build_s:.3f} s; flagship .vrp read natively in "
+          f"{native_s:.3f} s, scanned in {scan_s:.3f} s, equal plans and "
+          f"matrices (= the generated instance); TSP n=1000 .tsp native = "
+          f"scan = generated; 20-step int-delta solve from the file: score "
+          f"{score} (= plain rescore), kernel launches {launches}; "
+          f"print_metrics: {out.getvalue().strip()!r}", flush=True)
+    return launches
+
+
+def entry_phase(card):
+    """Phase 22: `entry()`'s step on the card against the CPU's score of
+    the same rows, and `dryrun_multichip(1)` on the initialised 1-rank
+    world. Returns the delta kernel's launches (the dryrun's leg 2)."""
+    import torch
+    from greyjack_tpu_torch import entry as gj_entry
+    from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+
+    step, (pop,) = gj_entry.entry(device=DEVICE)
+    got = step(pop)
+    torch.cuda.synchronize()
+    cpu_step, _ = gj_entry.entry(device="cpu")
+    want = cpu_step(pop.cpu())
+    if pop.device.type != DEVICE or tuple(got.shape) != (16, 3) \
+            or not torch.equal(got.cpu(), want):
+        fail("entry: the step on the card differs from the CPU's")
+    dk._call_kernel.launches = 0
+    gj_entry.dryrun_multichip(1)
+    launches = dk._call_kernel.launches
+    if launches <= 0 and DEVICE == "cuda":
+        fail("entry: dryrun_multichip's leg 2 never launched the kernel")
+    print(f"entry [{card}]: entry() plain score of {pop.shape[0]} rows on "
+          f"the card = the CPU's, bit for bit; dryrun_multichip(1): three "
+          f"legs passed, kernel launches {launches}", flush=True)
+    return launches
+
+
 def profile(out_dir, path, n_chunks=3):
     """torch.profiler breakdown of `n_chunks` flagship chunks (after one
     warm-up chunk) of the int-delta, the sweep, the LateAcceptance
@@ -1778,10 +2203,12 @@ def main(argv):
     metrics = SolverMetrics()
     dk._call_kernel.launches = 0
     t0 = time.perf_counter()
-    sol = solve_flagship(SOLVE_STEPS, metrics)
-    torch.cuda.synchronize()
+    with CollectiveClock() as clock:
+        sol = solve_flagship(SOLVE_STEPS, metrics)
+        torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = dk._call_kernel.launches
+    main_coll_ms = clock.total_ms() / len(metrics.records)
     paths = {r["kernel_path"] for r in metrics.records}
     if launches <= 0:
         fail("the solve never launched the CUDA delta kernel")
@@ -1838,7 +2265,7 @@ def main(argv):
 
     # --- 5. the sweep path ----------------------------------------------------
     sweep_parity()
-    sweep_solve(card)
+    sweep_run = sweep_solve(card)
 
     # --- 6. LateAcceptance and SimulatedAnnealing -----------------------------
     for name in ("LA", "SA"):
@@ -1873,6 +2300,29 @@ def main(argv):
 
     # --- 13. N-Queens (phase 17) ----------------------------------------------
     nqueens_phase(card)
+
+    # --- 14. phases 18-22 on a 1-rank NCCL world --------------------------
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from greyjack_tpu_torch.parallel.mesh import init_distributed
+
+    mesh_dir = tempfile.mkdtemp(prefix="gj_mesh_")
+    try:
+        mesh = init_distributed(
+            "file://" + os.path.join(mesh_dir, "store"), 1, 0)
+        try:
+            launches += mesh_phase(card, mesh,
+                                   (sol, metrics.records, main_coll_ms),
+                                   sweep_run)
+            partitioned_phase(card, mesh)
+            service_phase(card)
+            launches += native_phase(card)
+            launches += entry_phase(card)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
 
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]

@@ -16,6 +16,7 @@ import re
 import numpy as np
 import torch
 
+from greyjack_tpu_torch.native import parse_instance
 from greyjack_tpu_torch.ops.distance import euclidean_matrix
 from greyjack_tpu_torch.utils.math_utils import round_decimal, round_decimal_t
 
@@ -127,8 +128,30 @@ def read_tsp_file(path):
     explicit distance matrix, used for non-EUC_2D types. Returns
     (metadata, locations, matrix or None).
 
-    This is the JAX package's pure-Python scanner. Its native C++
-    tokenizer path (`greyjack_tpu/native`) is not ported yet."""
+    Uses the native C++ tokenizer (`greyjack_tpu_torch/native`) when it
+    builds; the Python scan (`scan_tsp_file`) is the fallback, and keeps a
+    name column, which the native path drops in favour of the ids."""
+    native = parse_instance(path)
+    if native is not None and len(native["ids"]):
+        metadata = {
+            "dataset_name": native["name"] or "tsp",
+            "distance_type": native["edge_weight_type"] or "EUC_2D",
+        }
+        locations = [
+            Location(int(i), x, y)
+            for i, x, y in zip(native["ids"], native["xs"], native["ys"])
+        ]
+        matrix = None
+        if ("EUC_2D" not in metadata["distance_type"]
+                and native["matrix"] is not None):
+            matrix = native["matrix"]
+        return metadata, locations, matrix
+    return scan_tsp_file(path)
+
+
+def scan_tsp_file(path):
+    """The pure-Python TSPLIB scan (`greyjack_tpu/models/tsp/domain.py`
+    `read_tsp_file`'s fallback)."""
     metadata = {}
     locations = []
     matrix_rows = []

@@ -119,7 +119,8 @@ def build_common(planning, facts, utils):
         dist, lateness = routes.vrp_routes_packed(
             sorted_v, sorted_c, utils["dm_flat_milli"], utils["n_locations"],
             utils["vehicle_depot_ids"], utils["work_day_start_k"],
-            utils["work_day_end_k"], cust_rows, utils["time_windowed"])
+            utils["work_day_end_k"], cust_rows, utils["time_windowed"],
+            dm_at=utils.get("dm_at"))
     loads = segments.segment_sum(cust_rows[..., 0], sorted_v,
                                  utils["k_vehicles"])
     return {

@@ -1,24 +1,28 @@
-"""VRP domain model + synthetic instances (counterpart of
-`greyjack_tpu/models/vrp/domain.py`).
+"""VRP domain model + .vrp persistence + synthetic instances (counterpart
+of `greyjack_tpu/models/vrp/domain.py`; reference
+`persistence/domain_builder.rs:18-316`).
 
 Multi-depot CVRP with optional time windows: the first `d` rows of the
 customer list are depots; vehicles are assigned round-robin over depots;
 vehicle work-day = depot time window. Coordinates and facts come from numpy,
 so both packages build the same instance from the same seed; the distance
 matrix (Euclidean, truncated to 3 decimals) is built in f64 on the host and
-placed on `device`.
-The `.vrp` file reader is not ported yet.
+placed on `device`. `.vrp` files are read by the native tokenizer
+(`greyjack_tpu_torch/native`) when it builds, else scanned in Python.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import re
 
 import numpy as np
 import torch
 
+from greyjack_tpu_torch.native import parse_instance
 from greyjack_tpu_torch.ops.distance import euclidean_matrix
+from greyjack_tpu_torch.utils.math_utils import round_decimal
 
 
 class Customer:
@@ -35,6 +39,11 @@ class Customer:
         self.time_window_end = int(time_window_end)
         self.service_time = int(service_time)
         self.frozen = bool(frozen)
+
+    def distance_to(self, other):
+        d = ((other.latitude - self.latitude) ** 2
+             + (other.longitude - self.longitude) ** 2) ** 0.5
+        return round_decimal(d, 3)
 
 
 class Vehicle:
@@ -58,6 +67,43 @@ class VehicleRoutingPlan:
         self.distance_matrix = distance_matrix  # f64[L, L] tensor on device
         self.depot_vec = depot_vec
         self.time_windowed = bool(time_windowed)
+
+    def get_unique_stops_count(self):
+        return len({c.vec_id for v in self.vehicles for c in v.customers})
+
+    def get_trip_distance(self, vehicle):
+        trip = vehicle.customers
+        if not trip:
+            return 0.0
+        d = (vehicle.depot.distance_to(trip[0])
+             + trip[-1].distance_to(vehicle.depot))
+        for i in range(1, len(trip)):
+            d += trip[i - 1].distance_to(trip[i])
+        return d
+
+    def get_sum_travel_distance(self):
+        return sum(self.get_trip_distance(v) for v in self.vehicles)
+
+    def get_trip_demand(self, vehicle):
+        return sum(c.demand for c in vehicle.customers)
+
+    def print_metrics(self):
+        print(f"Solution distance: {self.get_sum_travel_distance()}")
+        print(f"Unique stops (excluding depot): "
+              f"{self.get_unique_stops_count()}")
+
+    def print_trip_paths(self):
+        for k, vehicle in enumerate(self.vehicles):
+            names = [vehicle.depot.name]
+            names += [c.name for c in vehicle.customers]
+            names.append(vehicle.depot.name)
+            print()
+            print(f"vehicle {k} trip metrics:")
+            print(f"Distance: {self.get_trip_distance(vehicle)}")
+            print(f"Demand / capacity: {self.get_trip_demand(vehicle)} / "
+                  f"{vehicle.capacity}")
+            print(" --> ".join(names))
+            print()
 
 
 def _build_plan(name, customers, n_depots, k_vehicles, capacity,
@@ -115,15 +161,25 @@ def generate_instance(n_customers, n_depots=1, k_vehicles=10, seed=0,
 
 
 class DomainBuilder:
-    def __init__(self, generator):
+    """Builds from a `.vrp` file path (onto `device`, the card unless the
+    caller names another) or from a generator of plans (which places its
+    own matrix)."""
+
+    def __init__(self, vrp_file_path=None, generator=None, device="cuda"):
+        if (vrp_file_path is None) == (generator is None):
+            raise ValueError("give exactly one of vrp_file_path, generator")
+        self.vrp_file_path = vrp_file_path
         self.generator = generator
+        self.device = torch.device(device)
 
     @classmethod
     def from_generator(cls, generator):
         return cls(generator=generator)
 
     def build_domain_from_scratch(self):
-        return self.generator()
+        if self.generator is not None:
+            return self.generator()
+        return read_vrp_file(self.vrp_file_path, device=self.device)
 
     def build_from_solution(self, solution, initial_domain=None):
         """Reference `build_from_solution` (`domain_builder.rs:91-135`):
@@ -148,3 +204,93 @@ class DomainBuilder:
 
     def build_from_domain(self, domain):
         return copy.deepcopy(domain)
+
+
+def read_vrp_file(path, device="cuda"):
+    """.vrp parser (reference `read_vrp_file`, `domain_builder.rs:145-316`):
+    metadata (the vehicle count from the NAME's `-kNN` suffix, CAPACITY),
+    NODE_COORD_SECTION rows, DEMAND_SECTION rows (id demand [tw_start
+    tw_end service]), DEPOT_SECTION ids. The native tokenizer reads the
+    file when it builds (names are then the ids); otherwise the Python scan
+    below, which keeps a fourth coordinate column as the name."""
+    native = parse_instance(path)
+    if native is not None and len(native["ids"]) and len(native["depot_ids"]):
+        demand = native["demand_rows"]
+        time_windowed = demand.shape[1] == 5
+        customers = []
+        for vec_id in range(len(native["ids"])):
+            cid = int(native["ids"][vec_id])
+            d = demand[vec_id]
+            if int(d[0]) != cid:
+                raise ValueError("Invalid customer to demand mapping")
+            tw = ((int(d[2]), int(d[3]), int(d[4])) if time_windowed
+                  else (0, 0, 0))
+            customers.append(Customer(
+                cid, vec_id, float(native["xs"][vec_id]),
+                float(native["ys"][vec_id]), None, int(d[1]), *tw))
+        return _build_plan(native["name"] or "vrp", customers,
+                           len(native["depot_ids"]),
+                           int(native["vehicles_count"]),
+                           int(native["capacity"]), time_windowed,
+                           torch.device(device))
+    return scan_vrp_file(path, device)
+
+
+def scan_vrp_file(path, device="cuda"):
+    """The pure-Python `.vrp` scan (`greyjack_tpu/models/vrp/domain.py`
+    `read_vrp_file`'s fallback)."""
+    metadata = {}
+    coord_rows = []
+    demand_rows = []
+    depot_ids = []
+    section = "meta"
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if section == "meta":
+                if "NODE_COORD_SECTION" in line:
+                    section = "coords"
+                    continue
+                if "NAME" in line:
+                    name = line.split()[-1]
+                    metadata["dataset_name"] = name
+                    metadata["vehicles_count"] = name.split("-")[-1].replace(
+                        "k", "")
+                if "CAPACITY" in line:
+                    metadata["vehicles_capacity"] = line.split()[-1]
+            elif section == "coords":
+                if "DEMAND_SECTION" in line or "EOF" in line:
+                    section = "demand"
+                    continue
+                parts = re.sub(r"\s+", " ", line).split(" ")
+                if len(parts) >= 3:
+                    coord_rows.append(parts)
+            elif section == "demand":
+                if "DEPOT_SECTION" in line or "EOF" in line:
+                    section = "depot"
+                    continue
+                parts = line.split()
+                if parts:
+                    demand_rows.append([int(x) for x in parts])
+            else:
+                if "EOF" in line or line == "-1" or not line:
+                    break
+                depot_ids.append(int(line))
+
+    time_windowed = any(len(r) == 5 for r in demand_rows)
+    customers = []
+    for vec_id, parts in enumerate(coord_rows):
+        cid = int(parts[0])
+        name = parts[3] if len(parts) > 3 else parts[0]
+        d = demand_rows[vec_id]
+        if d[0] != cid:
+            raise ValueError("Invalid customer to demand mapping")
+        tw = (d[2], d[3], d[4]) if len(d) == 5 else (0, 0, 0)
+        customers.append(
+            Customer(cid, vec_id, float(parts[1]), float(parts[2]), name,
+                     d[1], tw[0], tw[1], tw[2])
+        )
+    return _build_plan(metadata.get("dataset_name", "vrp"), customers,
+                       len(depot_ids), int(metadata["vehicles_count"]),
+                       int(metadata["vehicles_capacity"]), time_windowed,
+                       torch.device(device))

@@ -49,12 +49,16 @@ def _maxplus_scan(adds, floors, neg=-(1 << 30)):
 
 def vrp_routes_packed(sorted_vehicle_ids, sorted_customer_ids, dm_flat_milli,
                       n_locations, vehicle_depot_ids, work_day_start,
-                      work_day_end, cust_rows, time_windowed, precision=3):
+                      work_day_end, cust_rows, time_windowed, precision=3,
+                      dm_at=None):
     """Scatter-free route walk over stops sorted by vehicle.
 
     sorted ids: i32[..., N]; cust_rows: i32[..., N, 4] per sorted stop
     ([demand, tw_start, tw_end, service]). Returns (sum_distance,
-    sum_time_penalty), f64[...] each."""
+    sum_time_penalty), f64[...] each. `dm_at` (optional): a flat-index
+    accessor used instead of indexing `dm_flat_milli` (the partitioned
+    facts' owner-computes gather, `ops/partitioned.py`); integer sums make
+    the result the same either way."""
     v = sorted_vehicle_ids.long()
     s = sorted_customer_ids
     l = n_locations
@@ -71,7 +75,8 @@ def vrp_routes_packed(sorted_vehicle_ids, sorted_customer_ids, dm_flat_milli,
         depot_of_stop * l + s,                  # depot->first    [N]
         s * l + depot_of_stop,                  # last->depot     [N]
     ], dim=-1)
-    vals3 = dm_flat_milli[idx3.long()]
+    vals3 = (dm_flat_milli[idx3.long()] if dm_at is None
+             else dm_at(idx3))
     chain_vals = vals3[..., :n - 1]
     start_vals = vals3[..., n - 1:2 * n - 1]
     return_vals = vals3[..., 2 * n - 1:]

@@ -47,11 +47,15 @@ class PlainScoreCalculator:
     def add_utility_object(self, name, obj):
         self.utility_objects[name] = obj
 
-    def score_batch(self, planning, facts, n_samples):
+    def score_batch(self, planning, facts, n_samples, util_overrides=None):
         """Score a population's frames -> f64[P, S], folding the weighted
         constraint rows in insertion order (fp-parity with the reference's
-        sequential `add_assign`, `plain_score_calculator.rs:79-90`)."""
+        sequential `add_assign`, `plain_score_calculator.rs:79-90`).
+        `util_overrides` (optional) is merged over the utility objects: the
+        partitioned-facts mode injects its `dm_at` accessor there."""
         utils = dict(self.utility_objects)
+        if util_overrides:
+            utils.update(util_overrides)
         for fn in self.prescoring_functions.values():
             extra = fn(planning, facts, utils)
             if extra:

@@ -255,10 +255,42 @@ class ScoreRequester:
         return frames
 
     # --- scoring ------------------------------------------------------------
-    def request_score_plain(self, population):
+    def request_score_plain(self, population, util_overrides=None):
         """f[P, V] -> f64[P, S] (reference `request_score_plain`,
         `oop_score_requester.rs:336-355`)."""
         calculator = self.cotwin.score_calculator
         frames = self.build_frames(population)
         return calculator.score_batch(frames, self.fact_frames,
-                                      population.shape[0])
+                                      population.shape[0], util_overrides)
+
+    # --- partitioned facts -------------------------------------------------
+    def partitioned_plain_score_fn(self, facts_group=None):
+        """Plain scoring with the distance matrix row-sharded over the
+        process group `facts_group` instead of replicated
+        (`greyjack_tpu/score_calculation/score_requesters/
+        score_requester.py:285-326`).
+
+        Returns `fn(dm_shard_flat, population) -> f64[P, S]`, called on
+        every rank of the group with the same population and this rank's
+        block of the flat padded milli matrix
+        (`ops/partitioned.shard_rows_flat`). Every matrix lookup is an
+        owner-computes sum over the group, so the scores equal the
+        replicated ones bit for bit. Only the plain path is partitioned:
+        the delta and sweep paths keep dense tables."""
+        from greyjack_tpu_torch.ops import partitioned
+
+        calc = self.cotwin.score_calculator
+        if calc.utility_objects.get("exact_fp_scores"):
+            raise ValueError(
+                "partitioned facts require the integer-milli score path "
+                "(exact_fp_scores=False)")
+        n_locations = calc.utility_objects["n_locations"]
+
+        def fn(dm_shard_flat, population):
+            def dm_at(flat_idx):
+                return partitioned.sharded_dm_gather_flat(
+                    dm_shard_flat, flat_idx, n_locations, facts_group)
+
+            return self.request_score_plain(population, {"dm_at": dm_at})
+
+        return fn

@@ -2,8 +2,8 @@
 `greyjack_tpu/solver/checkpoint.py`).
 
 A checkpoint holds everything a solve needs to continue exactly where it
-stopped: the island state tree (as numpy), every island generator's
-`get_state()`, the termination strategies (time-based ones rebased, so time
+stopped: the island state tree of all islands (as numpy), every island
+generator's `get_state()`, the termination strategies (time-based ones rebased, so time
 spent down does not count against their limits), the alive mask, the chunk
 counter and the best solution recorded so far. With a fixed `seed` and
 step-based termination, a solve resumed from a checkpoint gives the same
@@ -47,15 +47,16 @@ def _rebase_strategy_times(strategies, to_relative):
     return strategies
 
 
-def save_checkpoint(path, *, state, generators, strategies, alive, chunk_id,
-                    best=None, meta=None):
-    """Atomically write the solve state. `state` is the runner state (tensors
-    on any device), `generators` the islands' generators after the chunk,
-    `best` the solve's best record so far (score row and solution JSON)."""
+def save_checkpoint(path, *, state, generator_states, strategies, alive,
+                    chunk_id, best=None, meta=None):
+    """Atomically write the solve state. `state` is the runner state of all
+    islands (tensors on any device), `generator_states` every island's
+    generator `get_state()` after the chunk (uint8 tensors), `best` the
+    solve's best record so far (score row and solution JSON)."""
     payload = {
         "format_version": FORMAT_VERSION,
         "state": _to_numpy(state),
-        "generators": [g.get_state().numpy().copy() for g in generators],
+        "generators": [g.numpy().copy() for g in generator_states],
         "strategies": _rebase_strategy_times(
             [s.clone() for s in strategies], to_relative=True),
         "alive": np.asarray(alive, dtype=bool),

@@ -13,7 +13,18 @@ individual an island; Population agents (GeneticAlgorithm, LSHADE) run
 `population_size` an island, migrate `migration_rate` of it, and count
 `population_size` moves per island-step. A solve can write checkpoints and
 resume from one (`solver/checkpoint.py`), and capture a profiler trace of a
-few chunks (`profile_dir`). Not ported yet: `mesh` (raises).
+few chunks (`profile_dir`).
+
+Under a mesh (`parallel/mesh.py`) the solve is SPMD: every rank calls
+`Solver.solve` with the same builders and seed, holds the generators of
+its own global islands and steps them; termination reads every island's
+top, all-gathered, so all ranks keep the same strategies, alive mask and
+budgets (the JAX package's single-controller read, `solver.py:212-216`).
+Logging, observers, metrics and the profile run on the lead rank (rank 0);
+every rank returns the same solution. A checkpoint under a mesh is the
+whole state a single-device solve writes (rank 0 writes it after a
+gather), and a resume under a mesh takes each rank's part of it, so either
+kind of solve resumes from either kind of checkpoint.
 """
 
 from __future__ import annotations
@@ -92,11 +103,9 @@ class Solver:
         one record per chunk (wall ms after the device finished, moves/s,
         best score, kernel path) and fanned out to observers implementing
         `update_metrics`. profile_dir: write a `torch.profiler` trace of
-        a few chunks (`metrics.ProfileCapture`) there."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Solver.solve(mesh=...) is not ported yet (multi-GPU "
-                "islands, ROADMAP Queue 1 item 2)")
+        a few chunks (`metrics.ProfileCapture`) there. mesh: a
+        `parallel.mesh.IslandMesh`; every rank of it makes this call with
+        the same arguments."""
 
         # --- domain dispatch (`solver.rs:106-119`) ------------------------
         if initial_solution is None:
@@ -115,6 +124,13 @@ class Solver:
         requester = ScoreRequester(cotwin)
         score_class = requester.score_class
         device = requester.device
+        lead = mesh is None or mesh.is_lead
+        if mesh is not None and device.type != mesh.device.type:
+            raise ValueError(f"the domain lives on {device}, the mesh's "
+                             f"islands on {mesh.device}")
+        if not lead:
+            logging_level = SolverLoggingLevels.Silent
+            observers = None
 
         if score_precision is not None:
             if len(score_precision) != score_class.precision_len():
@@ -132,17 +148,24 @@ class Solver:
             kernel,
             n_islands=n_jobs,
             migration_frequency=agent_builder.migration_frequency,
+            mesh=mesh,
             compare_to_global=getattr(agent_builder, "compare_to_global", True),
         )
+        own = runner.local_islands
 
         global_score_obj = None
         solution_json = None
         if resume_from is not None:
             resumed = (resume_from if isinstance(resume_from, dict)
                        else load_checkpoint(resume_from))
-            state = from_numpy_tree(resumed["state"], device)
-            generators = island_generators(0, n_jobs, device)
-            for g, g_state in zip(generators, resumed["generators"],
+            state = runner.local_state(
+                from_numpy_tree(resumed["state"], device))
+            if len(resumed["generators"]) != n_jobs:
+                raise ValueError(
+                    f"the checkpoint holds {len(resumed['generators'])} "
+                    f"islands, the solve {n_jobs}")
+            generators = island_generators(0, n_jobs, device)[own]
+            for g, g_state in zip(generators, resumed["generators"][own],
                                   strict=True):
                 g.set_state(torch.from_numpy(np.array(g_state)))
             strategies = resumed["strategies"]
@@ -154,7 +177,9 @@ class Solver:
         else:
             if seed is None:
                 seed = np.random.SeedSequence().entropy % (2**63)
-            generators = island_generators(seed, n_jobs, device)
+                if mesh is not None:
+                    seed = mesh.broadcast(seed)  # the first rank's seed
+            generators = island_generators(seed, n_jobs, device)[own]
             state = runner.init(generators)
             strategies = [agent_builder.termination_strategy.clone()
                           for _ in range(n_jobs)]
@@ -172,14 +197,18 @@ class Solver:
                 return
             if not final and chunk_id % max(1, checkpoint_frequency) != 0:
                 return
+            whole, gen_states = runner.gather_state(state, generators)
+            if not lead:
+                return
             best = (None if global_score_obj is None
                     else (np.asarray(global_score_obj.values), solution_json))
-            save_checkpoint(checkpoint_path, state=state,
-                            generators=generators, strategies=strategies,
-                            alive=alive, chunk_id=chunk_id, best=best,
+            save_checkpoint(checkpoint_path, state=whole,
+                            generator_states=gen_states,
+                            strategies=strategies, alive=alive,
+                            chunk_id=chunk_id, best=best,
                             meta={"n_jobs": n_jobs, "seed": seed})
 
-        profiler = ProfileCapture(profile_dir, device)
+        profiler = ProfileCapture(profile_dir if lead else None, device)
         if metrics is not None:
             metrics.start()
         moves_per_step = (kernel.moves_per_step
@@ -222,7 +251,14 @@ class Solver:
             chunk_ms = (time.time() - t_chunk) * 1e3
 
             # --- host sync: termination, logging, observers ----------------
-            top_scores = state["islands"]["top_score"].cpu().numpy()
+            islands_state = state["islands"]
+            if mesh is not None:
+                # every island's top and sweep counters, in global order
+                islands_state = runner.gather_islands(
+                    islands_state, [k for k in ("top_score", "sweep_scored",
+                                                "sweep_nonconv")
+                                    if k in islands_state])
+            top_scores = islands_state["top_score"].cpu().numpy()
             g_score = state["global_score"].cpu().numpy()
             top_objs = [score_class.from_row(row) for row in top_scores]
             for i, strat in enumerate(strategies):
@@ -247,7 +283,7 @@ class Solver:
                     for obs in observers:
                         obs.update(solution_json)
 
-            if metrics is not None:
+            if metrics is not None and lead:
                 record = {
                     "chunk": chunk_id,
                     "steps": steps,
@@ -263,7 +299,6 @@ class Solver:
                 }
                 # sweep-health counters: cumulative scored candidates and
                 # lateness-bound (non-converged) candidates
-                islands_state = state["islands"]
                 if "sweep_scored" in islands_state:
                     record["sweep_scored"] = int(
                         islands_state["sweep_scored"].sum().item())

@@ -32,6 +32,29 @@ def round_decimal(value: float, precision: int) -> float:
     return fl + math.floor((value - fl) * multiplier) / multiplier
 
 
+def get_random_id(start_id: int, end_exclusive: int) -> int:
+    """Host-side uniform id draw (`math_utils.rs:14-16`), from Python's
+    `random` as the JAX package draws it."""
+    import random
+
+    return random.randrange(start_id, end_exclusive)
+
+
+def choice(objects, n: int, replace: bool):
+    """Host-side sampling with or without replacement
+    (`math_utils.rs:18-47`), from Python's `random` as the JAX package
+    samples."""
+    import random
+
+    if replace:
+        return [random.choice(objects) for _ in range(n)]
+    if n > len(objects):
+        raise ValueError(
+            "There are less objects than can be chosen without replacement"
+        )
+    return random.sample(list(objects), n)
+
+
 def round_decimal_t(value, precision):
     """Tensor `round_decimal` over the trailing axis; `precision` is a host
     int or list of ints (the multiplier is computed on the host, so no

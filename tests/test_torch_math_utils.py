@@ -70,3 +70,33 @@ def test_true_div_equals_the_quotient():
     assert got.dtype == torch.float64
     # the reciprocal product the card would take differs for some values
     assert (x * (1.0 / 1000.0) != x / 1000.0).any()
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_get_random_id_matches_jax(seed):
+    """The same Python `random` state gives the same ids in both
+    packages."""
+    import random
+
+    random.seed(seed)
+    want = [jmu.get_random_id(3, 40) for _ in range(50)]
+    random.seed(seed)
+    got = [tmu.get_random_id(3, 40) for _ in range(50)]
+    assert got == want
+    assert all(3 <= x < 40 for x in got)
+
+
+@pytest.mark.parametrize("replace", [True, False])
+def test_choice_matches_jax(replace):
+    import random
+
+    objects = list("abcdefghij")
+    random.seed(11)
+    want = [jmu.choice(objects, 6, replace) for _ in range(5)]
+    random.seed(11)
+    got = [tmu.choice(objects, 6, replace) for _ in range(5)]
+    assert got == want
+    if not replace:
+        assert all(len(set(draw)) == 6 for draw in got)
+        with pytest.raises(ValueError, match="less objects"):
+            tmu.choice(objects, 11, False)

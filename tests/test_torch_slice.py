@@ -76,19 +76,3 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-
-
-def test_unported_options_raise():
-    """Of `Solver.solve`'s options only `mesh=` (multi-GPU islands, ROADMAP
-    Queue 1) is still unported; it raises before any work is done."""
-    agent = TabuSearch(8, 0.2, True, None, [0.5, 0.5, 0, 0, 0, 0], 2,
-                       StepsLimit(2))
-
-    class _Never:
-        def build_domain_from_scratch(self):
-            raise AssertionError("built a domain before refusing mesh=")
-
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Solver.solve(_Never(), CotwinBuilder(True, True), agent, 1, seed=0,
-                     mesh=object(),
-                     logging_level=SolverLoggingLevels.Silent)

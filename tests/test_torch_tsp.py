@@ -214,10 +214,12 @@ def _write_tsplib(path, explicit=False):
 def test_read_tsp_file_matches_jax(tmp_path, monkeypatch, explicit):
     f = tmp_path / "tiny.tsp"
     _write_tsplib(f, explicit)
-    meta, locs, matrix = tsp.domain.read_tsp_file(str(f))
-    # the JAX package's pure-Python scanner (its native tokenizer off)
+    # both packages' pure-Python scanners (their native tokenizers off;
+    # `tests/test_torch_native_io.py` holds the native paths)
     import greyjack_tpu.native as jnative
     monkeypatch.setattr(jnative, "parse_instance", lambda path: None)
+    monkeypatch.setattr(tsp.domain, "parse_instance", lambda path: None)
+    meta, locs, matrix = tsp.domain.read_tsp_file(str(f))
     jmeta, jlocs, jmatrix = jdomain.read_tsp_file(str(f))
     assert meta == jmeta
     assert [(x.id, x.latitude, x.longitude, x.name) for x in locs] \
