@@ -21,6 +21,7 @@ import torch
 
 from greyjack_tpu_torch.ops import lexico, moves, selection
 from greyjack_tpu_torch.utils.math_utils import round_decimal_t
+from greyjack_tpu_torch.utils.tracing import span
 
 # the reference's f64::MAX-1 sentinel score component
 STUB = sys.float_info.max - 1.0
@@ -170,23 +171,26 @@ class PlainMoveStep:
         """(moved f[I, P, V], info, scores f64[I, P, S]) of `candidates`."""
         moved, info = moves.move_population(generators, candidates, self.vm,
                                             self.cfg, state["tabu"])
-        moved = self.vm.fix_all(moved)
+        with span("gj.moves.sample"):
+            moved = self.vm.fix_all(moved)
         return moved, info, self.pop_score_fn(moved)
 
     def accept(self, state, moved, scores, accept, info, chosen):
         """The island's candidate moved f[I, 1, V] with rows f64[I, 1, S]
         replaces its solution where `accept` (bool[I]); then the tabu push
         of neighbour `chosen` (int[I]), the island best and the step."""
-        state = dict(state)
-        keep = accept[:, None, None]
-        state["population"] = torch.where(keep, moved, state["population"])
-        state["scores"] = torch.where(keep, scores, state["scores"])
-        if self.cfg.use_tabu:
-            state["tabu"] = moves.update_tabu_from_info(state["tabu"], info,
-                                                        chosen)
-        state = update_top(state)
-        state["step_id"] = state["step_id"] + 1
-        return state
+        with span("gj.agent.accept"):
+            state = dict(state)
+            keep = accept[:, None, None]
+            state["population"] = torch.where(keep, moved,
+                                              state["population"])
+            state["scores"] = torch.where(keep, scores, state["scores"])
+            if self.cfg.use_tabu:
+                state["tabu"] = moves.update_tabu_from_info(
+                    state["tabu"], info, chosen)
+            state = update_top(state)
+            state["step_id"] = state["step_id"] + 1
+            return state
 
 
 def make_delta_score_fn(requester, score_precision=None):
@@ -280,14 +284,15 @@ def apply_winner(requester, state, winner, accept, cand):
     """Apply each island's winning delta (leaves [I, K]) where `accept`
     (bool[I]) holds, to the chromosome and the ctx, and store its score
     row `cand` f64[I, S] there. Returns a new state dict."""
-    winner = {**winner, "valid": winner["valid"] & accept[:, None]}
-    state = dict(state)
-    state["population"] = moves.apply_delta(state["population"][:, 0],
-                                            winner)[:, None]
-    state["ctx"] = requester.update_ctx(state["ctx"], winner)
-    state["scores"] = torch.where(accept[:, None, None], cand[:, None, :],
-                                  state["scores"])
-    return state
+    with span("gj.agent.accept"):
+        winner = {**winner, "valid": winner["valid"] & accept[:, None]}
+        state = dict(state)
+        state["population"] = moves.apply_delta(state["population"][:, 0],
+                                                winner)[:, None]
+        state["ctx"] = requester.update_ctx(state["ctx"], winner)
+        state["scores"] = torch.where(accept[:, None, None],
+                                      cand[:, None, :], state["scores"])
+        return state
 
 
 class RandomMoveStep:
@@ -310,13 +315,14 @@ class RandomMoveStep:
         return {key: x[:, 0] for key, x in deltas.items()}, info, cand
 
     def finish(self, state, info):
-        if self.cfg.use_tabu:
-            state["tabu"] = moves.update_tabu_from_info(
-                state["tabu"], info,
-                torch.zeros_like(state["step_id"], dtype=torch.int64))
-        state = update_top(state)
-        state["step_id"] = state["step_id"] + 1
-        return state
+        with span("gj.agent.accept"):
+            if self.cfg.use_tabu:
+                state["tabu"] = moves.update_tabu_from_info(
+                    state["tabu"], info,
+                    torch.zeros_like(state["step_id"], dtype=torch.int64))
+            state = update_top(state)
+            state["step_id"] = state["step_id"] + 1
+            return state
 
 
 class SweepStep:
@@ -354,19 +360,21 @@ class SweepStep:
         """dict of `active` bool[I], `ok` (active and a winner exists),
         the winner `delta` (leaves [I, K]), its `exact` i32[I, S] delta
         row, the tabu `info` and the `stats` counters."""
-        active = extras.get("_active")
-        if active is None:
-            active = torch.ones(state["step_id"].shape, dtype=torch.bool,
-                                device=state["step_id"].device)
-        free = extras.get("_free")
-        if free is None:
-            free = self.cfg.tabu_free(state["tabu"])
-        delta, exact, info, stats = self.mod.propose(
-            generators, state["ctx"], free, self.cfg.tabu_masks(state["tabu"]),
-            self.sweep_cfg, self.utils)
-        ok = active & (exact[:, 0] != torch.iinfo(exact.dtype).max)
-        return {"active": active, "ok": ok, "delta": delta, "exact": exact,
-                "info": info, "stats": stats}
+        with span("gj.agent.propose"):
+            active = extras.get("_active")
+            if active is None:
+                active = torch.ones(state["step_id"].shape, dtype=torch.bool,
+                                    device=state["step_id"].device)
+            free = extras.get("_free")
+            if free is None:
+                free = self.cfg.tabu_free(state["tabu"])
+            delta, exact, info, stats = self.mod.propose(
+                generators, state["ctx"], free,
+                self.cfg.tabu_masks(state["tabu"]), self.sweep_cfg,
+                self.utils)
+            ok = active & (exact[:, 0] != torch.iinfo(exact.dtype).max)
+            return {"active": active, "ok": ok, "delta": delta,
+                    "exact": exact, "info": info, "stats": stats}
 
     def cand_row(self, state, exact):
         """f64[I, S]: the score row of the base plus the exact delta."""
@@ -376,19 +384,20 @@ class SweepStep:
                                 + exact.to(torch.int64))
 
     def finish(self, state, p):
-        active, info, stats = p["active"], p["info"], p["stats"]
-        if self.cfg.use_tabu:
-            # the reference pushes touched ids during sampling
-            # (`mover.rs:75-96`): push the winner's targets whether or not
-            # accepted, rotating sweep targets out of tabu
-            state["tabu"] = selection.tabu_push(
-                state["tabu"], info["group"], info["positions"],
-                torch.where(active, info["count"], 0))
-        state["sweep_scored"] = state["sweep_scored"] + torch.where(
-            active, stats["n_scored"], 0)
-        state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
-            active, stats["n_nonconv"], 0)
-        state = update_top(state)
-        state["step_id"] = state["step_id"] + active.to(
-            state["step_id"].dtype)
-        return state
+        with span("gj.agent.accept"):
+            active, info, stats = p["active"], p["info"], p["stats"]
+            if self.cfg.use_tabu:
+                # the reference pushes touched ids during sampling
+                # (`mover.rs:75-96`): push the winner's targets whether or
+                # not accepted, rotating sweep targets out of tabu
+                state["tabu"] = selection.tabu_push(
+                    state["tabu"], info["group"], info["positions"],
+                    torch.where(active, info["count"], 0))
+            state["sweep_scored"] = state["sweep_scored"] + torch.where(
+                active, stats["n_scored"], 0)
+            state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
+                active, stats["n_nonconv"], 0)
+            state = update_top(state)
+            state["step_id"] = state["step_id"] + active.to(
+                state["step_id"].dtype)
+            return state

@@ -22,17 +22,20 @@ import torch
 
 from greyjack_tpu_torch.agents import base
 from greyjack_tpu_torch.ops import lexico, moves
+from greyjack_tpu_torch.utils.tracing import span
 
 
 def plain_accept_best(pm, state, moved, scores, info):
     """The deterministic rest of a plain TabuSearch step: each island's
     lexicographically best neighbour (lowest index on ties) replaces the
     current solution iff no worse."""
-    best = lexico.lex_argmin(scores)                                 # [I]
-    best_row = moves.take_one(scores, best)
-    accept = lexico.lex_leq(best_row, state["scores"][:, 0])
-    return pm.accept(state, moves.take_one(moved, best)[:, None],
-                     best_row[:, None], accept, info, best)
+    with span("gj.agent.accept"):
+        best = lexico.lex_argmin(scores)                             # [I]
+        best_row = moves.take_one(scores, best)
+        accept = lexico.lex_leq(best_row, state["scores"][:, 0])
+        best_moved = moves.take_one(moved, best)[:, None]
+    return pm.accept(state, best_moved, best_row[:, None], accept, info,
+                     best)
 
 
 class TabuSearch:
@@ -110,43 +113,48 @@ class TabuSearch:
             # exact i32 deltas and materialize the f64 score from the ctx
             # sums; else f64 rows
             if use_ints:
-                ints = requester.request_score_delta_ints(state["ctx"],
+                rows = requester.request_score_delta_ints(state["ctx"],
                                                           deltas)
-                best = lexico.lex_argmin(ints)                 # [I]
-                best_delta = moves.take_one(ints, best)        # [I, S]
-                if ints_to_row is None:
-                    cand_row = None
-                    improves = lexico.lex_leq(best_delta,
-                                              torch.zeros_like(best_delta))
-                else:
-                    cand_row = ints_to_row(
-                        requester.ctx_int_totals(state["ctx"])
-                        + best_delta.to(torch.int64))
-                    improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
             else:
-                scores = delta_score_fn(state["ctx"], deltas)  # [I, P, S]
-                best = lexico.lex_argmin(scores)
-                cand_row = moves.take_one(scores, best)
-                improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
-            accept = improves & active
-            winner = moves.take_one(deltas, best)
-            winner = {**winner, "valid": winner["valid"] & accept[:, None]}
-            state = dict(state)
-            state["population"] = moves.apply_delta(base_row, winner)[:, None]
-            state["ctx"] = requester.update_ctx(state["ctx"], winner)
-            # guarded: a rejected / inactive step keeps the stored score
-            new_score = (cand_row if cand_row is not None
-                         else requester.ctx_score_row(state["ctx"]))
-            state["scores"] = torch.where(accept[:, None, None],
-                                          new_score[:, None, :],
-                                          state["scores"])
-            if cfg.use_tabu:
-                state["tabu"] = moves.update_tabu_from_info(
-                    state["tabu"], info, best, active)
-            state = base.update_top(state)
-            state["step_id"] = state["step_id"] + active.to(
-                state["step_id"].dtype)
-            return state
+                rows = delta_score_fn(state["ctx"], deltas)    # [I, P, S]
+            with span("gj.agent.accept"):
+                best = lexico.lex_argmin(rows)                 # [I]
+                if use_ints:
+                    best_delta = moves.take_one(rows, best)    # [I, S]
+                    if ints_to_row is None:
+                        cand_row = None
+                        improves = lexico.lex_leq(
+                            best_delta, torch.zeros_like(best_delta))
+                    else:
+                        cand_row = ints_to_row(
+                            requester.ctx_int_totals(state["ctx"])
+                            + best_delta.to(torch.int64))
+                        improves = lexico.lex_leq(cand_row,
+                                                  state["scores"][:, 0])
+                else:
+                    cand_row = moves.take_one(rows, best)
+                    improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
+                accept = improves & active
+                winner = moves.take_one(deltas, best)
+                winner = {**winner,
+                          "valid": winner["valid"] & accept[:, None]}
+                state = dict(state)
+                state["population"] = moves.apply_delta(base_row,
+                                                        winner)[:, None]
+                state["ctx"] = requester.update_ctx(state["ctx"], winner)
+                # guarded: a rejected / inactive step keeps the stored score
+                new_score = (cand_row if cand_row is not None
+                             else requester.ctx_score_row(state["ctx"]))
+                state["scores"] = torch.where(accept[:, None, None],
+                                              new_score[:, None, :],
+                                              state["scores"])
+                if cfg.use_tabu:
+                    state["tabu"] = moves.update_tabu_from_info(
+                        state["tabu"], info, best, active)
+                state = base.update_top(state)
+                state["step_id"] = state["step_id"] + active.to(
+                    state["step_id"].dtype)
+                return state
 
         # the label is the JAX package's (`tabu_search.py:181-191`):
         # "int-delta" whenever the model registers the integer rows and
@@ -200,30 +208,33 @@ class TabuSearch:
 
         def step(generators, state, extras):
             p = sw.propose(generators, state, extras)
-            active, exact = p["active"], p["exact"]
-            forced = state["sweep_stall"] >= stall_limit
-            if sw.ints_to_row is None:
-                cand_row = None
-                improves = lexico.lex_leq(exact, torch.zeros_like(exact))
-            else:
-                cand_row = sw.cand_row(state, exact)
-                improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
-            accept = (improves | forced) & p["ok"]
-            winner = {**p["delta"],
-                      "valid": p["delta"]["valid"] & accept[:, None]}
-            state = dict(state)
-            state["population"] = moves.apply_delta(
-                state["population"][:, 0], winner)[:, None]
-            state["ctx"] = requester.update_ctx(state["ctx"], winner)
-            new_score = (cand_row if cand_row is not None
-                         else requester.ctx_score_row(state["ctx"]))
-            new_best = lexico.lex_less(new_score, state["top_score"]) & accept
-            state["sweep_stall"] = torch.where(
-                active, torch.where(new_best, 0, state["sweep_stall"] + 1),
-                state["sweep_stall"])
-            state["scores"] = torch.where(accept[:, None, None],
-                                          new_score[:, None, :],
-                                          state["scores"])
+            with span("gj.agent.accept"):
+                active, exact = p["active"], p["exact"]
+                forced = state["sweep_stall"] >= stall_limit
+                if sw.ints_to_row is None:
+                    cand_row = None
+                    improves = lexico.lex_leq(exact, torch.zeros_like(exact))
+                else:
+                    cand_row = sw.cand_row(state, exact)
+                    improves = lexico.lex_leq(cand_row, state["scores"][:, 0])
+                accept = (improves | forced) & p["ok"]
+                winner = {**p["delta"],
+                          "valid": p["delta"]["valid"] & accept[:, None]}
+                state = dict(state)
+                state["population"] = moves.apply_delta(
+                    state["population"][:, 0], winner)[:, None]
+                state["ctx"] = requester.update_ctx(state["ctx"], winner)
+                new_score = (cand_row if cand_row is not None
+                             else requester.ctx_score_row(state["ctx"]))
+                new_best = (lexico.lex_less(new_score, state["top_score"])
+                            & accept)
+                state["sweep_stall"] = torch.where(
+                    active, torch.where(new_best, 0,
+                                        state["sweep_stall"] + 1),
+                    state["sweep_stall"])
+                state["scores"] = torch.where(accept[:, None, None],
+                                              new_score[:, None, :],
+                                              state["scores"])
             return sw.finish(state, p)
 
         return base.MetaheuristicKernel(

@@ -32,6 +32,7 @@ import torch
 
 from greyjack_tpu_torch.ops import lexico
 from greyjack_tpu_torch.utils.math_utils import true_div
+from greyjack_tpu_torch.utils.tracing import span
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -132,77 +133,83 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     legs = ctx["legs"]                      # [I, N+1]
     dev = s.device
 
-    # per-stop neighbours (the depot, 0, at both ends)
-    zero = torch.zeros((ni, 1), dtype=s.dtype, device=dev)
-    p_vec = torch.cat([zero, s[:, :-1]], dim=1)                 # [I, N]
-    n_vec = torch.cat([s[:, 1:], zero], dim=1)
-    iota_n = torch.arange(n, dtype=_I32, device=dev)
-    rows = t_rows.long()
+    with span("gj.sweep.tables"):
+        # per-stop neighbours (the depot, 0, at both ends)
+        zero = torch.zeros((ni, 1), dtype=s.dtype, device=dev)
+        p_vec = torch.cat([zero, s[:, :-1]], dim=1)             # [I, N]
+        n_vec = torch.cat([s[:, 1:], zero], dim=1)
+        iota_n = torch.arange(n, dtype=_I32, device=dev)
+        rows = t_rows.long()
 
-    def pick(x):                            # [I, N] -> [I, T] at t_rows
-        return torch.gather(x, 1, rows)
+        def pick(x):                        # [I, N] -> [I, T] at t_rows
+            return torch.gather(x, 1, rows)
 
-    t_c = pick(s)
-    t_p = pick(p_vec)
-    t_n = pick(n_vec)
-    t_inleg = pick(legs[:, :-1])            # legs[t]
-    t_outleg = pick(legs[:, 1:])            # legs[t+1]
+        t_c = pick(s)
+        t_p = pick(p_vec)
+        t_n = pick(n_vec)
+        t_inleg = pick(legs[:, :-1])        # legs[t]
+        t_outleg = pick(legs[:, 1:])        # legs[t+1]
 
-    row_p = dm[t_p.long()]                  # dm[prev, :]    [I, T, L]
-    row_n = dmt[t_n.long()]                 # dm[:, next]
-    row_s = dm[t_c.long()]                  # dm[c_t, :]
-    row_sT = dmt[t_c.long()]                # dm[:, c_t]
-    t_io = (t_inleg + t_outleg)[..., None]
+        row_p = dm[t_p.long()]              # dm[prev, :]    [I, T, L]
+        row_n = dmt[t_n.long()]             # dm[:, next]
+        row_s = dm[t_c.long()]              # dm[c_t, :]
+        row_sT = dmt[t_c.long()]            # dm[:, c_t]
+        t_io = (t_inleg + t_outleg)[..., None]
 
     # --- change [T, Lc]: values c = 1..L-1 ----------------------------------
-    cand = torch.arange(1, l, dtype=_I32, device=dev)
-    a_dist = row_p[..., 1:] + row_n[..., 1:] - t_io
-    dups_gone = (torch.gather(counts, 1, t_c.long()) == 1).to(_I32)
-    appears_new = (counts[:, None, 1:] == 0).to(_I32)
-    same = cand == t_c[..., None]
-    a_hard = torch.where(same, 0, dups_gone[..., None] - appears_new)
-    a_valid = t_valid[..., None] & ~same    # the no-op is excluded
+    with span("gj.sweep.change"):
+        cand = torch.arange(1, l, dtype=_I32, device=dev)
+        a_dist = row_p[..., 1:] + row_n[..., 1:] - t_io
+        dups_gone = (torch.gather(counts, 1, t_c.long()) == 1).to(_I32)
+        appears_new = (counts[:, None, 1:] == 0).to(_I32)
+        same = cand == t_c[..., None]
+        a_hard = torch.where(same, 0, dups_gone[..., None] - appears_new)
+        a_valid = t_valid[..., None] & ~same    # the no-op is excluded
 
     # --- swap [T, N]: the general 6-leg splice; adjacent pairs replace the
     # shared leg by its reverse ------------------------------------------------
-    rps = _cols(row_p, s)                   # dm[p_t, c_j]
-    rns = _cols(row_n, s)                   # dm[c_j, n_t]
-    rstp = _cols(row_sT, p_vec)             # dm[p_j, c_t]
-    rsn = _cols(row_s, n_vec)               # dm[c_t, n_j]
-    legs_j = legs[:, None, :-1]
-    legs_j1 = legs[:, None, 1:]
-    g = rps + rns + rstp + rsn - t_io - (legs_j + legs_j1)
-    rev_in = dmf[(t_c * l + t_p).long()]    # dm[c_t, prev_t]
-    rev_out = dmf[(t_n * l + t_c).long()]   # dm[next_t, c_t]
-    tr = t_rows[..., None]
-    is_next = tr + 1 == iota_n
-    is_prev = tr - 1 == iota_n
-    c_dist = (g
-              + torch.where(is_next, (rev_out + t_outleg)[..., None], 0)
-              + torch.where(is_prev, (rev_in + t_inleg)[..., None], 0))
-    zeros_tn = torch.zeros((ni, t, n), dtype=_I32, device=dev)
-    not_self = iota_n != tr
-    untabu = ~row_tabu[:, None, :]
-    c_valid = (t_valid[..., None] & not_self
-               & (s[:, None, :] != t_c[..., None])   # equal values: a no-op
-               & untabu)
+    with span("gj.sweep.swap"):
+        rps = _cols(row_p, s)               # dm[p_t, c_j]
+        rns = _cols(row_n, s)               # dm[c_j, n_t]
+        rstp = _cols(row_sT, p_vec)         # dm[p_j, c_t]
+        rsn = _cols(row_s, n_vec)           # dm[c_t, n_j]
+        legs_j = legs[:, None, :-1]
+        legs_j1 = legs[:, None, 1:]
+        g = rps + rns + rstp + rsn - t_io - (legs_j + legs_j1)
+        rev_in = dmf[(t_c * l + t_p).long()]    # dm[c_t, prev_t]
+        rev_out = dmf[(t_n * l + t_c).long()]   # dm[next_t, c_t]
+        tr = t_rows[..., None]
+        is_next = tr + 1 == iota_n
+        is_prev = tr - 1 == iota_n
+        c_dist = (g
+                  + torch.where(is_next, (rev_out + t_outleg)[..., None], 0)
+                  + torch.where(is_prev, (rev_in + t_inleg)[..., None], 0))
+        zeros_tn = torch.zeros((ni, t, n), dtype=_I32, device=dev)
+        not_self = iota_n != tr
+        untabu = ~row_tabu[:, None, :]
+        c_valid = (t_valid[..., None] & not_self
+                   & (s[:, None, :] != t_c[..., None])  # equal values: no-op
+                   & untabu)
 
     # --- 2-opt reversal [T, N] of positions [min(t, j), max(t, j)]: the
     # interior legs keep their lengths only for symmetric matrices, which
     # this model always builds; span capped at kd - 1 ----------------------
-    jgt = iota_n > tr
-    r_dist = torch.where(jgt, rps + rsn - t_inleg[..., None] - legs_j1,
-                         rstp + rns - legs_j - t_outleg[..., None])
-    span_ok = torch.abs(iota_n - tr) <= cfg.kd - 1
-    r_valid = t_valid[..., None] & not_self & span_ok & untabu
+    with span("gj.sweep.two_opt"):
+        jgt = iota_n > tr
+        r_dist = torch.where(jgt, rps + rsn - t_inleg[..., None] - legs_j1,
+                             rstp + rns - legs_j - t_outleg[..., None])
+        span_ok = torch.abs(iota_n - tr) <= cfg.kd - 1
+        r_valid = t_valid[..., None] & not_self & span_ok & untabu
 
     # --- or-opt insertion [T, N]: the target's city moves to sit right
     # after position j (remove splice + insert splice) ----------------------
-    splice_t = dmf[(t_p * l + t_n).long()]  # dm[p_t, n_t]
-    rss = _cols(row_sT, s)                  # dm[c_j, c_t]
-    i_dist = (splice_t - t_inleg - t_outleg)[..., None] + rss + rsn - legs_j1
-    i_valid = (t_valid[..., None] & not_self & (iota_n != tr - 1) & span_ok
-               & untabu)
+    with span("gj.sweep.or_opt"):
+        splice_t = dmf[(t_p * l + t_n).long()]  # dm[p_t, n_t]
+        rss = _cols(row_sT, s)                  # dm[c_j, c_t]
+        i_dist = ((splice_t - t_inleg - t_outleg)[..., None] + rss + rsn
+                  - legs_j1)
+        i_valid = (t_valid[..., None] & not_self & (iota_n != tr - 1)
+                   & span_ok & untabu)
 
     return {
         "a_hard": a_hard, "a_dist": a_dist, "a_valid": a_valid,
@@ -265,104 +272,107 @@ def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     dev = t_rows.device
     sc = score_candidates(ctx, t_rows, t_valid, row_tabu, cfg, utils)
 
-    def keyrow(hard, dist, val):
-        k2 = torch.stack([hard, dist], dim=-1)
-        return torch.where(val[..., None], k2, _STUB).reshape(ni, -1, 2)
+    with span("gj.sweep.select"):
+        def keyrow(hard, dist, val):
+            k2 = torch.stack([hard, dist], dim=-1)
+            return torch.where(val[..., None], k2, _STUB).reshape(ni, -1, 2)
 
-    keys_all = torch.cat([
-        keyrow(sc["a_hard"], sc["a_dist"], sc["a_valid"]),
-        keyrow(sc["c_hard"], sc["c_dist"], sc["c_valid"]),
-        keyrow(sc["r_hard"], sc["r_dist"], sc["r_valid"]),
-        keyrow(sc["i_hard"], sc["i_dist"], sc["i_valid"]),
-    ], dim=1)                                        # [I, T*Lc + 3*T*N, 2]
-    best = lexico.lex_argmin(keys_all)                        # [I]
-    n_a = t * lc
-    fam = ((best >= n_a).to(_I64) + (best >= n_a + t * n).to(_I64)
-           + (best >= n_a + 2 * t * n).to(_I64))              # 0..3
-    off = best - torch.where(fam == 0, 0, n_a + (fam - 1) * (t * n))
-    per = torch.where(fam == 0, lc, n)
-    ti = off // per
-    vi = off % per                        # < n: the change family has L-1
+        keys_all = torch.cat([
+            keyrow(sc["a_hard"], sc["a_dist"], sc["a_valid"]),
+            keyrow(sc["c_hard"], sc["c_dist"], sc["c_valid"]),
+            keyrow(sc["r_hard"], sc["r_dist"], sc["r_valid"]),
+            keyrow(sc["i_hard"], sc["i_dist"], sc["i_valid"]),
+        ], dim=1)                                    # [I, T*Lc + 3*T*N, 2]
+        best = lexico.lex_argmin(keys_all)                    # [I]
+        n_a = t * lc
+        fam = ((best >= n_a).to(_I64) + (best >= n_a + t * n).to(_I64)
+               + (best >= n_a + 2 * t * n).to(_I64))          # 0..3
+        off = best - torch.where(fam == 0, 0, n_a + (fam - 1) * (t * n))
+        per = torch.where(fam == 0, lc, n)
+        ti = off // per
+        vi = off % per                    # < n: the change family has L-1
 
-    def pick(x, i):                                           # [I, X] at [I]
-        return torch.gather(x, 1, i[:, None].long())[:, 0]
+        def pick(x, i):                                       # [I, X] at [I]
+            return torch.gather(x, 1, i[:, None].long())[:, 0]
 
-    s_tour = sc["s"]
-    w_row = pick(sc["t_rows"], ti).to(_I64)
-    w_c_old = pick(sc["t_c"], ti)
-    j_c = pick(s_tour, vi)
+        s_tour = sc["s"]
+        w_row = pick(sc["t_rows"], ti).to(_I64)
+        w_c_old = pick(sc["t_c"], ti)
+        j_c = pick(s_tour, vi)
 
-    # --- winner delta, width cfg.kd ------------------------------------------
-    kidx = torch.arange(cfg.kd, dtype=_I64, device=dev)[None, :]
-    a = torch.minimum(w_row, vi)[:, None]
-    b = torch.maximum(w_row, vi)[:, None]
-    span = b - a + 1
-    fam_, vi_ = fam[:, None], vi[:, None]
-    w_row_ = w_row[:, None]
+        # --- winner delta, width cfg.kd --------------------------------------
+        kidx = torch.arange(cfg.kd, dtype=_I64, device=dev)[None, :]
+        a = torch.minimum(w_row, vi)[:, None]
+        b = torch.maximum(w_row, vi)[:, None]
+        width = b - a + 1
+        fam_, vi_ = fam[:, None], vi[:, None]
+        w_row_ = w_row[:, None]
 
-    def s_at(idx):                                            # [I, kd]
-        return torch.gather(s_tour, 1, torch.clamp(idx, 0, n - 1))
+        def s_at(idx):                                        # [I, kd]
+            return torch.gather(s_tour, 1, torch.clamp(idx, 0, n - 1))
 
-    var_ids = cfg.var_ids
-    # change: one var at w_row gets 1+vi; swap: w_row and vi exchange;
-    # reversal: positions a..b get s[b - k]; insertion after j: j > t
-    # rotates [t..j] left (the last slot gets s[a]), j < t rotates
-    # [j+1..t] right (the first slot gets s[t])
-    jgt = vi_ > w_row_
-    start = torch.where((fam_ == 3) & ~jgt, a + 1, a)
-    pos_var = var_ids[torch.clamp(start + kidx, 0, n - 1)]
-    v_change = torch.where(kidx == 0, 1 + vi_, 0)
-    pos_w = var_ids[w_row_]
-    pos_change = torch.where(kidx == 0, pos_w, pos_var)
-    v_swap = torch.where(kidx == 0, j_c[:, None], w_c_old[:, None])
-    pos_swap = torch.where(kidx == 0, pos_w,
-                           var_ids[torch.clamp(vi_, max=n - 1)])
-    v_rev = s_at(b - kidx)
-    v_ins = torch.where(
-        jgt,
-        torch.where(kidx == span - 1, s_at(a), s_at(a + 1 + kidx)),
-        torch.where(kidx == 0, s_at(b), s_at(start + kidx - 1)))
-    positions = torch.where((fam_ <= 1) & (kidx < 2),
-                            torch.where(fam_ == 0, pos_change, pos_swap),
-                            pos_var).to(_I32)
-    values = torch.where(fam_ == 0, v_change,
-                         torch.where(fam_ == 1, v_swap,
-                                     torch.where(fam_ == 2, v_rev, v_ins)))
-    isl = torch.arange(ni, device=dev)
-    best_key = keys_all[isl, best]                            # [I, 2]
-    any_valid = best_key[:, 0] != _STUB
-    nvalid = torch.where(fam_ == 0, 1,
-                         torch.where(fam_ == 1, 2,
-                                     torch.where((fam_ == 2) | jgt, span,
-                                                 span - 1)))
-    delta = {
-        "positions": positions,
-        "values": values.to(cfg.float_dtype),
-        "valid": (kidx < nvalid) & any_valid[:, None],
-    }
-    # the winner's exact (d_hard, d_dist) straight from the family tiles:
-    # every TSP family delta is exact closed-form leg arithmetic
-    exact = torch.where(any_valid[:, None], best_key, _STUB).to(_I32)
+        var_ids = cfg.var_ids
+        # change: one var at w_row gets 1+vi; swap: w_row and vi exchange;
+        # reversal: positions a..b get s[b - k]; insertion after j: j > t
+        # rotates [t..j] left (the last slot gets s[a]), j < t rotates
+        # [j+1..t] right (the first slot gets s[t])
+        jgt = vi_ > w_row_
+        start = torch.where((fam_ == 3) & ~jgt, a + 1, a)
+        pos_var = var_ids[torch.clamp(start + kidx, 0, n - 1)]
+        v_change = torch.where(kidx == 0, 1 + vi_, 0)
+        pos_w = var_ids[w_row_]
+        pos_change = torch.where(kidx == 0, pos_w, pos_var)
+        v_swap = torch.where(kidx == 0, j_c[:, None], w_c_old[:, None])
+        pos_swap = torch.where(kidx == 0, pos_w,
+                               var_ids[torch.clamp(vi_, max=n - 1)])
+        v_rev = s_at(b - kidx)
+        v_ins = torch.where(
+            jgt,
+            torch.where(kidx == width - 1, s_at(a), s_at(a + 1 + kidx)),
+            torch.where(kidx == 0, s_at(b), s_at(start + kidx - 1)))
+        positions = torch.where((fam_ <= 1) & (kidx < 2),
+                                torch.where(fam_ == 0, pos_change, pos_swap),
+                                pos_var).to(_I32)
+        values = torch.where(fam_ == 0, v_change,
+                             torch.where(fam_ == 1, v_swap,
+                                         torch.where(fam_ == 2, v_rev, v_ins)))
+        isl = torch.arange(ni, device=dev)
+        best_key = keys_all[isl, best]                        # [I, 2]
+        any_valid = best_key[:, 0] != _STUB
+        nvalid = torch.where(fam_ == 0, 1,
+                             torch.where(fam_ == 1, 2,
+                                         torch.where((fam_ == 2) | jgt,
+                                                     width, width - 1)))
+        delta = {
+            "positions": positions,
+            "values": values.to(cfg.float_dtype),
+            "valid": (kidx < nvalid) & any_valid[:, None],
+        }
+    with span("gj.sweep.exact"):
+        # the winner's exact (d_hard, d_dist) straight from the family
+        # tiles: every TSP family delta is exact closed-form leg arithmetic
+        exact = torch.where(any_valid[:, None], best_key, _STUB).to(_I32)
 
-    # the tabu rings hold group slots, not tour rows: map through
-    # slot_of_row and drop a slotless (frozen) partner from the push
-    w_slot = cfg.slot_of_row[w_row]
-    partner_slot = cfg.slot_of_row[torch.clamp(vi, max=n - 1)]
-    has_partner = (fam >= 1) & (partner_slot >= 0)
-    info = {
-        "group": torch.full((ni,), cfg.g0, dtype=_I32, device=dev),
-        "positions": torch.stack(
-            [w_slot, torch.where(has_partner, partner_slot, w_slot)],
-            dim=-1).to(_I32),
-        "count": torch.where(has_partner, 2, 1).to(_I32),
-    }
+    with span("gj.sweep.select"):
+        # the tabu rings hold group slots, not tour rows: map through
+        # slot_of_row and drop a slotless (frozen) partner from the push
+        w_slot = cfg.slot_of_row[w_row]
+        partner_slot = cfg.slot_of_row[torch.clamp(vi, max=n - 1)]
+        has_partner = (fam >= 1) & (partner_slot >= 0)
+        info = {
+            "group": torch.full((ni,), cfg.g0, dtype=_I32, device=dev),
+            "positions": torch.stack(
+                [w_slot, torch.where(has_partner, partner_slot, w_slot)],
+                dim=-1).to(_I32),
+            "count": torch.where(has_partner, 2, 1).to(_I32),
+        }
 
-    def total(m):
-        return torch.sum(m, dim=(1, 2), dtype=_I64)
+        def total(m):
+            return torch.sum(m, dim=(1, 2), dtype=_I64)
 
-    stats = {"n_scored": (total(sc["a_valid"]) + total(sc["c_valid"])
-                          + total(sc["r_valid"]) + total(sc["i_valid"])),
-             "n_nonconv": torch.zeros((ni,), dtype=_I64, device=dev)}
+        stats = {"n_scored": (total(sc["a_valid"]) + total(sc["c_valid"])
+                              + total(sc["r_valid"]) + total(sc["i_valid"])),
+                 "n_nonconv": torch.zeros((ni,), dtype=_I64, device=dev)}
     return delta, exact, info, stats
 
 
@@ -370,9 +380,12 @@ def propose(generators, ctx, free, tabu_masks, cfg: SweepConfig, utils):
     """Sample T targets per island from its generator (tabu-free slots),
     then `propose_from_targets`. `free` is `MoverConfig.tabu_free`'s pair,
     `tabu_masks` its `tabu_masks` (None without tabu)."""
-    t_rows, t_valid = sample_targets(generators, ctx, free, cfg)
-    row_tabu = tabu_rows(tabu_masks, cfg, t_rows.shape[0])
-    return propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg, utils)
+    with span("gj.sweep.propose"):
+        with span("gj.sweep.targets"):
+            t_rows, t_valid = sample_targets(generators, ctx, free, cfg)
+            row_tabu = tabu_rows(tabu_masks, cfg, t_rows.shape[0])
+        return propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg,
+                                    utils)
 
 
 def exact_score_row(ctx, exact_ints, utils):

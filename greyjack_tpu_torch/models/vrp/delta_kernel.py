@@ -35,6 +35,7 @@ import torch
 
 from greyjack_tpu_torch.ops import moves, lexico
 from greyjack_tpu_torch.utils.math_utils import true_div
+from greyjack_tpu_torch.utils.tracing import span
 from greyjack_tpu_torch.models.vrp.cotwin_builder import _delta_common, _take
 
 _BIG = 1 << 30
@@ -74,9 +75,7 @@ def score_delta_batch(ctx, deltas, utils):
     the kernel is statically ineligible."""
     if not eligible(utils, deltas):
         return None
-    inputs, aux = _pre(ctx, deltas, utils)
-    outs = _call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
-    return _post(outs, aux, ctx, utils)
+    return _score(ctx, deltas, utils, as_ints=False)
 
 
 def score_delta_batch_ints(ctx, deltas, utils):
@@ -86,9 +85,17 @@ def score_delta_batch_ints(ctx, deltas, utils):
     pass an accept-if-<=-zero test. None when the kernel is ineligible."""
     if not eligible(utils, deltas):
         return None
-    inputs, aux = _pre(ctx, deltas, utils)
-    outs = _call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
-    return _post(outs, aux, ctx, utils, as_ints=True)
+    return _score(ctx, deltas, utils, as_ints=True)
+
+
+def _score(ctx, deltas, utils, as_ints):
+    """The three stages, each in its span."""
+    with span("gj.delta.pre"):
+        inputs, aux = _pre(ctx, deltas, utils)
+    with span("gj.delta.kernel"):
+        outs = _call_kernel(inputs, utils, aux["kd"], aux["n_islands"])
+    with span("gj.delta.post"):
+        return _post(outs, aux, ctx, utils, as_ints=as_ints)
 
 
 def _compact_routes(c, kd, k):

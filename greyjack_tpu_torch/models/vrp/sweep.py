@@ -34,6 +34,7 @@ import torch
 from greyjack_tpu_torch.models.vrp import cotwin_builder as cb
 from greyjack_tpu_torch.ops import lexico
 from greyjack_tpu_torch.utils.math_utils import true_div
+from greyjack_tpu_torch.utils.tracing import span
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -628,28 +629,33 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     lateness-exactness (`conv`) masks, plus the per-target values the winner
     decode needs. `late` entries are exact where `conv`, else a valid
     optimistic lower bound (see the module docstring)."""
-    if tables is None:
-        tables = build_tables(ctx, cfg, utils)
-    stbl, route = tables
-    trow = cb._take(stbl, t_rows)                             # [I, T, C]
-    tg = _columns(trow)
-    twin = _insert_axis(_target_window(trow), 2)              # [I, T, 1, ..]
+    with span("gj.sweep.tables"):
+        if tables is None:
+            tables = build_tables(ctx, cfg, utils)
+        stbl, route = tables
+        trow = cb._take(stbl, t_rows)                         # [I, T, C]
+        tg = _columns(trow)
+        twin = _insert_axis(_target_window(trow), 2)          # [I, T, 1, ..]
 
-    # dm rows of the target's neighbourhood
-    dm, dmt = cfg.dm, cfg.dmT
-    prev, nxt, c = tg["prev"].long(), tg["next"].long(), tg["c"].long()
-    row_prev = dm[prev]                                       # dm[prev, :]
-    row_next = dmt[nxt]                                       # dm[:, next]
-    row_self = dm[c]                                          # dm[c, :]
-    row_selfT = dmt[c]                                        # dm[:, c]
-    splice = dm[prev, nxt].to(_I64)                           # dm[prev,next]
+        # dm rows of the target's neighbourhood
+        dm, dmt = cfg.dm, cfg.dmT
+        prev, nxt, c = tg["prev"].long(), tg["next"].long(), tg["c"].long()
+        row_prev = dm[prev]                                   # dm[prev, :]
+        row_next = dmt[nxt]                                   # dm[:, next]
+        row_self = dm[c]                                      # dm[c, :]
+        row_selfT = dmt[c]                                    # dm[:, c]
+        splice = dm[prev, nxt].to(_I64)                       # dm[prev,next]
 
-    out = _change_sweep(tg, twin, row_prev, row_next, ctx["counts"],
-                        t_valid, cfg, utils)
-    out.update(_vehicle_sweep(ctx, tg, t_rows, t_valid, route, row_self,
-                              row_selfT, splice, cfg, utils))
-    out.update(_swap_sweep(ctx, tg, twin, stbl, t_valid, row_tabu, row_prev,
-                           row_next, row_self, row_selfT, cfg, utils))
+    with span("gj.sweep.change"):
+        out = _change_sweep(tg, twin, row_prev, row_next, ctx["counts"],
+                            t_valid, cfg, utils)
+    with span("gj.sweep.vehicle"):
+        out.update(_vehicle_sweep(ctx, tg, t_rows, t_valid, route, row_self,
+                                  row_selfT, splice, cfg, utils))
+    with span("gj.sweep.swap"):
+        out.update(_swap_sweep(ctx, tg, twin, stbl, t_valid, row_tabu,
+                               row_prev, row_next, row_self, row_selfT, cfg,
+                               utils))
     out.update({"t_rows": t_rows, "t_c": tg["c"], "s_c": ctx["c"]})
     return out
 
@@ -744,52 +750,57 @@ def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     nd = utils["n_locations"] - utils["n_stops"]
     kk = utils["k_vehicles"]
     sc = score_candidates(ctx, t_rows, t_valid, row_tabu, cfg, utils)
-    fam, ti, vi, any_valid = _select_winner(sc, cfg, utils)
 
     def pick(x, i):                                           # [I, X] at [I]
         return torch.gather(x, 1, i[:, None].long())[:, 0]
 
-    w_row = pick(sc["t_rows"], ti).long()
-    w_c_old = pick(sc["t_c"], ti)
-    in_n = vi < n
-    vi_c = torch.clamp(vi, max=n - 1)
-    j_c = torch.where(in_n, pick(sc["s_c"], vi_c), 0)         # family C
-    val1 = torch.where(fam == 0, nd + vi,
-                       torch.where(fam == 1, vi, j_c)).to(_I32)
-    pos1 = torch.where(fam == 1, cfg.veh_var[w_row], cfg.cust_var[w_row])
-    pos2 = torch.where(fam == 2, cfg.cust_var[vi_c], pos1)
-    delta = {
-        "positions": torch.stack([pos1, pos2], dim=-1).to(_I32),
-        "values": torch.stack([val1, w_c_old], dim=-1).to(cfg.float_dtype),
-        "valid": torch.stack([any_valid, (fam == 2) & any_valid], dim=-1),
-    }
-    exact = _exact_rescore(ctx, delta, any_valid, utils)
+    with span("gj.sweep.select"):
+        fam, ti, vi, any_valid = _select_winner(sc, cfg, utils)
+        w_row = pick(sc["t_rows"], ti).long()
+        w_c_old = pick(sc["t_c"], ti)
+        in_n = vi < n
+        vi_c = torch.clamp(vi, max=n - 1)
+        j_c = torch.where(in_n, pick(sc["s_c"], vi_c), 0)     # family C
+        val1 = torch.where(fam == 0, nd + vi,
+                           torch.where(fam == 1, vi, j_c)).to(_I32)
+        pos1 = torch.where(fam == 1, cfg.veh_var[w_row], cfg.cust_var[w_row])
+        pos2 = torch.where(fam == 2, cfg.cust_var[vi_c], pos1)
+        delta = {
+            "positions": torch.stack([pos1, pos2], dim=-1).to(_I32),
+            "values": torch.stack([val1, w_c_old],
+                                  dim=-1).to(cfg.float_dtype),
+            "valid": torch.stack([any_valid, (fam == 2) & any_valid],
+                                 dim=-1),
+        }
+    with span("gj.sweep.exact"):
+        exact = _exact_rescore(ctx, delta, any_valid, utils)
 
-    # tabu info: the winner's touched group slots (the reference pushes
-    # touched ids during sampling, `mover.rs:75-96`), and its affected
-    # vehicles (pre-update ids; <= 2 by construction)
-    slot1 = torch.where(fam == 1, cfg.slot_of_row_veh[w_row],
-                        cfg.slot_of_row_cust[w_row])
-    slot2 = torch.where(fam == 2, cfg.slot_of_row_cust[vi_c], slot1)
-    av_a = pick(ctx["v"], w_row)
-    v_of_vi = torch.where(in_n, pick(ctx["v"], vi_c), 0)
-    av_b = torch.where(fam == 1, vi, torch.where(fam == 2, v_of_vi, kk))
-    info = {
-        "group": torch.where(fam == 1, cfg.g_veh, cfg.g_cust).to(_I32),
-        "positions": torch.stack([slot1, slot2], dim=-1).to(_I32),
-        "count": torch.where(fam == 2, 2, 1).to(_I32),
-        "av": torch.stack([av_a, av_b.to(_I32)], dim=-1),
-    }
+    with span("gj.sweep.select"):
+        # tabu info: the winner's touched group slots (the reference
+        # pushes touched ids during sampling, `mover.rs:75-96`), and its
+        # affected vehicles (pre-update ids; <= 2 by construction)
+        slot1 = torch.where(fam == 1, cfg.slot_of_row_veh[w_row],
+                            cfg.slot_of_row_cust[w_row])
+        slot2 = torch.where(fam == 2, cfg.slot_of_row_cust[vi_c], slot1)
+        av_a = pick(ctx["v"], w_row)
+        v_of_vi = torch.where(in_n, pick(ctx["v"], vi_c), 0)
+        av_b = torch.where(fam == 1, vi, torch.where(fam == 2, v_of_vi, kk))
+        info = {
+            "group": torch.where(fam == 1, cfg.g_veh, cfg.g_cust).to(_I32),
+            "positions": torch.stack([slot1, slot2], dim=-1).to(_I32),
+            "count": torch.where(fam == 2, 2, 1).to(_I32),
+            "av": torch.stack([av_a, av_b.to(_I32)], dim=-1),
+        }
 
-    def total(m):
-        return torch.sum(m, dim=(1, 2), dtype=_I64)
+        def total(m):
+            return torch.sum(m, dim=(1, 2), dtype=_I64)
 
-    stats = {
-        "n_scored": (total(sc["a_valid"]) + total(sc["b_valid"])
-                     + total(sc["c_valid"])),
-        "n_nonconv": (total(sc["a_valid"] & ~sc["a_conv"])
-                      + total(sc["c_valid"] & ~sc["c_conv"])),
-    }
+        stats = {
+            "n_scored": (total(sc["a_valid"]) + total(sc["b_valid"])
+                         + total(sc["c_valid"])),
+            "n_nonconv": (total(sc["a_valid"] & ~sc["a_conv"])
+                          + total(sc["c_valid"] & ~sc["c_conv"])),
+        }
     return delta, exact, info, stats
 
 
@@ -797,9 +808,12 @@ def propose(generators, ctx, free, tabu_masks, cfg: SweepConfig, utils):
     """Sample T targets per island from its generator (tabu-free customer
     slots), then `propose_from_targets`. `free` is `MoverConfig.tabu_free`'s
     pair, `tabu_masks` its `tabu_masks` (None without tabu)."""
-    t_rows, t_valid = sample_targets(generators, ctx, free, cfg)
-    row_tabu = tabu_rows(tabu_masks, cfg, t_rows.shape[0])
-    return propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg, utils)
+    with span("gj.sweep.propose"):
+        with span("gj.sweep.targets"):
+            t_rows, t_valid = sample_targets(generators, ctx, free, cfg)
+            row_tabu = tabu_rows(tabu_masks, cfg, t_rows.shape[0])
+        return propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg,
+                                    utils)
 
 
 def exact_score_row(ctx, exact_ints, utils):

@@ -31,6 +31,7 @@ import torch
 from greyjack_tpu_torch import config
 from greyjack_tpu_torch.ops import selection
 from greyjack_tpu_torch.utils.math_utils import round_decimal
+from greyjack_tpu_torch.utils.tracing import span
 
 
 def default_move_thresholds():
@@ -669,24 +670,27 @@ def move_population_delta(generators, base, n_neighbours, vm, cfg,
     `cfg.tabu_free` pair for the narrow sampler (the island runner's
     prestep builds it once per step for all islands); the generic sampler
     reads the tabu masks instead."""
-    if not cfg.narrow:
-        noise = draw_delta_noise(generators, n_neighbours, vm, cfg,
-                                 base.dtype)
-        return do_move_delta(base, noise, vm, cfg,
-                             cfg.tabu_masks(tabu_state))
-    if free is None:
-        free = cfg.tabu_free(tabu_state)
-    return _move_population_delta_narrow(generators, base, n_neighbours, vm,
-                                         cfg, free)
+    with span("gj.moves.sample"):
+        if not cfg.narrow:
+            noise = draw_delta_noise(generators, n_neighbours, vm, cfg,
+                                     base.dtype)
+            return do_move_delta(base, noise, vm, cfg,
+                                 cfg.tabu_masks(tabu_state))
+        if free is None:
+            free = cfg.tabu_free(tabu_state)
+        return _move_population_delta_narrow(generators, base, n_neighbours,
+                                             vm, cfg, free)
 
 
 def move_population(generators, population, vm, cfg, tabu_state):
     """One random move on every candidate of population f[I, P, V]
     (`greyjack_tpu/ops/moves.py:668-681`): returns (moved f[I, P, V],
     info). The tabu masks are built once for the batch."""
-    noise = draw_move_noise(generators, population.shape[1], vm, cfg,
-                            population.dtype)
-    return do_move(population, noise, vm, cfg, cfg.tabu_masks(tabu_state))
+    with span("gj.moves.sample"):
+        noise = draw_move_noise(generators, population.shape[1], vm, cfg,
+                                population.dtype)
+        return do_move(population, noise, vm, cfg,
+                       cfg.tabu_masks(tabu_state))
 
 
 def dedupe_delta(delta):

@@ -36,6 +36,7 @@ import torch.distributed as dist
 from greyjack_tpu_torch.agents import base as agent_base
 from greyjack_tpu_torch.agents import late_acceptance as la_mod
 from greyjack_tpu_torch.ops import lexico
+from greyjack_tpu_torch.utils.tracing import span
 
 
 def _leaves(tree, prefix=()):
@@ -149,30 +150,35 @@ class IslandRunner:
             extras = {k: v[own] for k, v in extras.items()}
         islands = self._steps(state["islands"], generators, alive,
                               steps_left, extras, n_steps)
-        islands = self._migrate(islands)
-        state = self._update_global(state, islands)
-        return self._refresh(state)
+        with span("gj.runner.migrate"):
+            islands = self._migrate(islands)
+        with span("gj.runner.reduce"):
+            state = self._update_global(state, islands)
+        with span("gj.runner.refresh"):
+            return self._refresh(state)
 
     def _steps(self, islands, generators, alive, steps_left, extras, n_steps):
         step = self.kernel.step
         ends = {k for k in extras if k.endswith("_end")}
         lerped = {k for k in extras if k + "_end" in ends}
         for i in range(n_steps):
-            # per-step extras: `<k>` .. `<k>_end` lerped by step index; for
-            # StepsLimit the accomplish rate is linear in steps, so the lerp
-            # is exact
-            frac = i / n_steps
-            ex = {k: (v + (extras[k + "_end"] - v) * frac) if k in lerped
-                  else v for k, v in extras.items() if k not in ends}
-            act = alive & (i < steps_left)
-            if self.kernel.prestep is not None:
-                ex.update(self.kernel.prestep(islands))
-            if self.kernel.self_gating:
-                # the kernel freezes its own writes for inactive islands
-                islands = step(generators, islands, {**ex, "_active": act})
-            else:
-                islands = agent_base.mask_state(
-                    step(generators, islands, ex), islands, act)
+            with span("gj.runner.step"):
+                # per-step extras: `<k>` .. `<k>_end` lerped by step index;
+                # for StepsLimit the accomplish rate is linear in steps, so
+                # the lerp is exact
+                frac = i / n_steps
+                ex = {k: (v + (extras[k + "_end"] - v) * frac) if k in lerped
+                      else v for k, v in extras.items() if k not in ends}
+                act = alive & (i < steps_left)
+                if self.kernel.prestep is not None:
+                    with span("gj.runner.prestep"):
+                        ex.update(self.kernel.prestep(islands))
+                if self.kernel.self_gating:
+                    # the kernel freezes its own writes for inactive islands
+                    islands = step(generators, islands, {**ex, "_active": act})
+                else:
+                    islands = agent_base.mask_state(
+                        step(generators, islands, ex), islands, act)
         return islands
 
     def _refresh(self, state):

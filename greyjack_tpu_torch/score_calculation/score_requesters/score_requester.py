@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from greyjack_tpu_torch import config
+from greyjack_tpu_torch.utils.tracing import span
 from greyjack_tpu_torch.variables.planning_variables import _PlanningVariable
 from greyjack_tpu_torch.score_calculation.score_requesters.variables_manager import (  # noqa: E501
     VariablesManager,
@@ -152,8 +153,10 @@ class ScoreRequester:
         """One O(N) pass over one base candidate per island,
         f[I, V] -> model ctx (leaves with a leading island axis)."""
         calc = self.cotwin.score_calculator
-        frames = self.build_frames(base_rows)
-        return calc.delta_ctx_fn(frames, self.fact_frames, self._delta_utils())
+        with span("gj.ctx.build"):
+            frames = self.build_frames(base_rows)
+            return calc.delta_ctx_fn(frames, self.fact_frames,
+                                     self._delta_utils())
 
     def request_score_delta(self, ctx, deltas):
         """f64[I, P, S] score rows of every island's neighbourhood (delta
@@ -161,13 +164,14 @@ class ScoreRequester:
         kernel), or the per-neighbour `score_delta` when that scorer is
         statically ineligible for this shape (it returns None)."""
         calc = self.cotwin.score_calculator
-        utils = self._delta_utils()
-        batch_fn = getattr(calc, "delta_score_batch_fn", None)
-        if batch_fn is not None:
-            out = batch_fn(ctx, deltas, utils)
-            if out is not None:
-                return out
-        return calc.delta_score_fn(ctx, deltas, utils)
+        with span("gj.delta.score"):
+            utils = self._delta_utils()
+            batch_fn = getattr(calc, "delta_score_batch_fn", None)
+            if batch_fn is not None:
+                out = batch_fn(ctx, deltas, utils)
+                if out is not None:
+                    return out
+            return calc.delta_score_fn(ctx, deltas, utils)
 
     def request_score_delta_ints(self, ctx, deltas):
         """Integer delta rows i32[I, P, S] for the local-search accept loop,
@@ -175,8 +179,9 @@ class ScoreRequester:
         shape (a host-side static, so callers branch in Python)."""
         if not self.registers_delta_ints:
             return None
-        return self.cotwin.score_calculator.delta_score_batch_ints_fn(
-            ctx, deltas, self._delta_utils())
+        with span("gj.delta.score"):
+            return self.cotwin.score_calculator.delta_score_batch_ints_fn(
+                ctx, deltas, self._delta_utils())
 
     @property
     def registers_delta_ints(self):
@@ -222,7 +227,8 @@ class ScoreRequester:
         """Apply one accepted delta per island (delta leaves [I, K]; identity
         for islands whose delta has no valid entries)."""
         calc = self.cotwin.score_calculator
-        return calc.delta_update_fn(ctx, delta, self._delta_utils())
+        with span("gj.ctx.update"):
+            return calc.delta_update_fn(ctx, delta, self._delta_utils())
 
     # --- frames -------------------------------------------------------------
     def build_frames(self, population):
@@ -259,9 +265,11 @@ class ScoreRequester:
         """f[P, V] -> f64[P, S] (reference `request_score_plain`,
         `oop_score_requester.rs:336-355`)."""
         calculator = self.cotwin.score_calculator
-        frames = self.build_frames(population)
-        return calculator.score_batch(frames, self.fact_frames,
-                                      population.shape[0], util_overrides)
+        with span("gj.score.plain"):
+            frames = self.build_frames(population)
+            return calculator.score_batch(frames, self.fact_frames,
+                                          population.shape[0],
+                                          util_overrides)
 
     # --- partitioned facts -------------------------------------------------
     def partitioned_plain_score_fn(self, facts_group=None):

@@ -17,7 +17,10 @@ lands. `wall_ms` is measured after the device finished the chunk.
 Profiling: `Solver.solve(..., profile_dir=DIR)` captures a `torch.profiler`
 trace (host, and the card when the solve runs on one) of chunks
 [PROFILE_START_CHUNK, PROFILE_START_CHUNK + PROFILE_N_CHUNKS) and writes it
-to DIR as a Chrome trace, `trace_chunks_<first>-<last>.json`.
+to DIR as a Chrome trace, `trace_chunks_<first>-<last>.json`. The trace
+carries the `gj.*` spans of `utils/tracing.py` (the solver loop, the
+island runner, the sampler, the agent step, the sweep, the delta scorer,
+the ctx update, the plain score), on the clock of the card's activity.
 """
 
 from __future__ import annotations
@@ -67,7 +70,9 @@ class SolverMetrics:
 
 class ProfileCapture:
     """A `torch.profiler` trace bounded to the window of chunks above; it
-    records the card's activity too when `device`, the solve's, is one."""
+    records the card's activity too when `device`, the solve's, is one,
+    and the `gj.*` spans of `utils/tracing.py`, which open only while a
+    profiler records."""
 
     def __init__(self, profile_dir, device):
         self.profile_dir = profile_dir

@@ -45,6 +45,7 @@ from greyjack_tpu_torch.agents.termination_strategies.strategies import (
 from greyjack_tpu_torch.solver.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
 from greyjack_tpu_torch.solver.metrics import ProfileCapture
+from greyjack_tpu_torch.utils.tracing import span
 
 
 def _convert_to_json(variables_manager, values_row, score_obj):
@@ -103,7 +104,9 @@ class Solver:
         one record per chunk (wall ms after the device finished, moves/s,
         best score, kernel path) and fanned out to observers implementing
         `update_metrics`. profile_dir: write a `torch.profiler` trace of
-        a few chunks (`metrics.ProfileCapture`) there. mesh: a
+        a few chunks (`metrics.ProfileCapture`) there; besides the host
+        ops and the card's activity it carries the `gj.*` spans of
+        `utils/tracing.py` at every layer boundary of the solve. mesh: a
         `parallel.mesh.IslandMesh`; every rank of it makes this call with
         the same arguments."""
 
@@ -216,102 +219,116 @@ class Solver:
                           or kernel.population_size)
 
         while True:
-            # fixed chunk size; per-island step budgets keep StepsLimit exact
-            steps = runner.migration_frequency
-            budgets = np.full(n_jobs, steps, dtype=np.int32)
-            for i, (strat, a) in enumerate(zip(strategies, alive)):
-                if a and isinstance(strat, StepsLimit):
-                    remaining = strat.steps_limit + 1 - strat.steps_made
-                    budgets[i] = max(1, min(steps, remaining))
+            # the chunk's host work: budgets, extras, the profiler window,
+            # and the copies of run_chunk's host arguments
+            with span("gj.solver.host"):
+                # fixed chunk size; per-island step budgets keep StepsLimit
+                # exact
+                steps = runner.migration_frequency
+                budgets = np.full(n_jobs, steps, dtype=np.int32)
+                for i, (strat, a) in enumerate(zip(strategies, alive)):
+                    if a and isinstance(strat, StepsLimit):
+                        remaining = strat.steps_limit + 1 - strat.steps_made
+                        budgets[i] = max(1, min(steps, remaining))
 
-            extras = {}
-            if is_sa_auto:
-                # per-step auto-temperature: the runner lerps start..end
-                # across the chunk (`agent_base.rs:537-552`; exact for
-                # StepsLimit, chunk-granular for time-based strategies)
-                extras["inverted_accomplish_rate"] = torch.tensor(
-                    [1.0 - s.get_accomplish_rate() for s in strategies],
-                    dtype=torch.float64, device=device)
-                extras["inverted_accomplish_rate_end"] = torch.tensor(
-                    [1.0 - s.predict_accomplish_rate(int(b))
-                     for s, b in zip(strategies, budgets)],
-                    dtype=torch.float64, device=device)
+                extras = {}
+                if is_sa_auto:
+                    # per-step auto-temperature: the runner lerps start..end
+                    # across the chunk (`agent_base.rs:537-552`; exact for
+                    # StepsLimit, chunk-granular for time-based strategies)
+                    extras["inverted_accomplish_rate"] = torch.tensor(
+                        [1.0 - s.get_accomplish_rate() for s in strategies],
+                        dtype=torch.float64, device=device)
+                    extras["inverted_accomplish_rate_end"] = torch.tensor(
+                        [1.0 - s.predict_accomplish_rate(int(b))
+                         for s, b in zip(strategies, budgets)],
+                        dtype=torch.float64, device=device)
 
-            profiler.tick(chunk_id)
-            chunk_moves = int(np.sum(budgets[alive])) * moves_per_step
-            if metrics is not None:
-                _sync(device)
-            t_chunk = time.time()
-            state = runner.run_chunk(
-                state, generators, torch.as_tensor(alive, device=device),
-                extras, steps,
-                steps_left=torch.as_tensor(budgets, device=device))
-            if metrics is not None:
-                _sync(device)
-            chunk_ms = (time.time() - t_chunk) * 1e3
+                profiler.tick(chunk_id)
+                chunk_moves = int(np.sum(budgets[alive])) * moves_per_step
+                if metrics is not None:
+                    with span("gj.solver.sync"):
+                        _sync(device)
+                t_chunk = time.time()
+                alive_t = torch.as_tensor(alive, device=device)
+                steps_left = torch.as_tensor(budgets, device=device)
+            state = runner.run_chunk(state, generators, alive_t, extras, steps,
+                                     steps_left=steps_left)
+            with span("gj.solver.host"):
+                if metrics is not None:
+                    with span("gj.solver.sync"):
+                        _sync(device)
+                chunk_ms = (time.time() - t_chunk) * 1e3
 
-            # --- host sync: termination, logging, observers ----------------
-            islands_state = state["islands"]
-            if mesh is not None:
-                # every island's top and sweep counters, in global order
-                islands_state = runner.gather_islands(
-                    islands_state, [k for k in ("top_score", "sweep_scored",
-                                                "sweep_nonconv")
-                                    if k in islands_state])
-            top_scores = islands_state["top_score"].cpu().numpy()
-            g_score = state["global_score"].cpu().numpy()
-            top_objs = [score_class.from_row(row) for row in top_scores]
-            for i, strat in enumerate(strategies):
-                if alive[i]:
-                    strat.update(top_objs[i], steps=int(budgets[i]))
-                    if strat.is_accomplish():
-                        alive[i] = False
-                        if logging_level not in (SolverLoggingLevels.Silent,):
-                            print(
-                                f"Agent {i} has successfully terminated work. "
-                                "Now it's just relaying migrants until all "
-                                "agents are done."
-                            )
+                # --- host sync: termination, logging, observers ------------
+                islands_state = state["islands"]
+                with span("gj.solver.sync"):
+                    if mesh is not None:
+                        # every island's top and sweep counters, in global
+                        # order
+                        islands_state = runner.gather_islands(
+                            islands_state,
+                            [k for k in ("top_score", "sweep_scored",
+                                         "sweep_nonconv")
+                             if k in islands_state])
+                    top_scores = islands_state["top_score"].cpu().numpy()
+                    g_score = state["global_score"].cpu().numpy()
+                top_objs = [score_class.from_row(row) for row in top_scores]
+                for i, strat in enumerate(strategies):
+                    if alive[i]:
+                        strat.update(top_objs[i], steps=int(budgets[i]))
+                        if strat.is_accomplish():
+                            alive[i] = False
+                            if logging_level not in (
+                                    SolverLoggingLevels.Silent,):
+                                print(
+                                    f"Agent {i} has successfully terminated "
+                                    "work. Now it's just relaying migrants "
+                                    "until all agents are done."
+                                )
 
-            new_global = score_class.from_row(g_score)
-            improved = global_score_obj is None or new_global < global_score_obj
-            if improved:
-                global_score_obj = new_global
-                solution_json = _convert_to_json(
-                    vm, state["global_values"].cpu().numpy(), new_global)
-                if observers:
-                    for obs in observers:
-                        obs.update(solution_json)
+                new_global = score_class.from_row(g_score)
+                improved = (global_score_obj is None
+                            or new_global < global_score_obj)
+                if improved:
+                    global_score_obj = new_global
+                    with span("gj.solver.sync"):
+                        g_values = state["global_values"].cpu().numpy()
+                    solution_json = _convert_to_json(vm, g_values, new_global)
+                    if observers:
+                        for obs in observers:
+                            obs.update(solution_json)
 
-            if metrics is not None and lead:
-                record = {
-                    "chunk": chunk_id,
-                    "steps": steps,
-                    "wall_ms": round(chunk_ms, 3),
-                    "moves": chunk_moves,
-                    "moves_per_s": round(chunk_moves / (chunk_ms / 1e3), 1)
-                    if chunk_ms > 0 else 0.0,
-                    "global_best": g_score.tolist(),
-                    "improved": bool(improved),
-                    "n_alive": int(np.sum(alive)),
-                    "migrations": int(np.sum(alive)),
-                    "kernel_path": kernel.path,
-                }
-                # sweep-health counters: cumulative scored candidates and
-                # lateness-bound (non-converged) candidates
-                if "sweep_scored" in islands_state:
-                    record["sweep_scored"] = int(
-                        islands_state["sweep_scored"].sum().item())
-                    record["sweep_nonconv"] = int(
-                        islands_state["sweep_nonconv"].sum().item())
-                metrics.add(record, observers=observers)
+                if metrics is not None and lead:
+                    record = {
+                        "chunk": chunk_id,
+                        "steps": steps,
+                        "wall_ms": round(chunk_ms, 3),
+                        "moves": chunk_moves,
+                        "moves_per_s": round(chunk_moves / (chunk_ms / 1e3),
+                                             1) if chunk_ms > 0 else 0.0,
+                        "global_best": g_score.tolist(),
+                        "improved": bool(improved),
+                        "n_alive": int(np.sum(alive)),
+                        "migrations": int(np.sum(alive)),
+                        "kernel_path": kernel.path,
+                    }
+                    # sweep-health counters: cumulative scored candidates
+                    # and lateness-bound (non-converged) candidates
+                    if "sweep_scored" in islands_state:
+                        with span("gj.solver.sync"):
+                            record["sweep_scored"] = int(
+                                islands_state["sweep_scored"].sum().item())
+                            record["sweep_nonconv"] = int(
+                                islands_state["sweep_nonconv"].sum().item())
+                    metrics.add(record, observers=observers)
 
-            _log(logging_level, chunk_id, steps, new_global, improved,
-                 solving_start, int(np.sum(alive)))
-            chunk_id += 1
-            save(final=not alive.any())
-            if not alive.any():
-                break
+                _log(logging_level, chunk_id, steps, new_global, improved,
+                     solving_start, int(np.sum(alive)))
+                chunk_id += 1
+                save(final=not alive.any())
+                if not alive.any():
+                    break
         profiler.close(chunk_id - 1)
 
         if solution_json is None:
