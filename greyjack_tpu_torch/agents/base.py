@@ -25,6 +25,9 @@ from greyjack_tpu_torch.utils.tracing import span
 
 # the reference's f64::MAX-1 sentinel score component
 STUB = sys.float_info.max - 1.0
+# the sweep modules' stub of an exact integer row with no winner, whether
+# the row is i32 or i64
+STUB_INT = (1 << 31) - 1
 
 
 class MetaheuristicKernel:
@@ -287,8 +290,9 @@ def apply_winner(requester, state, winner, accept, cand):
     with span("gj.agent.accept"):
         winner = {**winner, "valid": winner["valid"] & accept[:, None]}
         state = dict(state)
-        state["population"] = moves.apply_delta(state["population"][:, 0],
-                                                winner)[:, None]
+        with span("gj.agent.apply"):
+            state["population"] = moves.apply_delta(
+                state["population"][:, 0], winner)[:, None]
         state["ctx"] = requester.update_ctx(state["ctx"], winner)
         state["scores"] = torch.where(accept[:, None, None],
                                       cand[:, None, :], state["scores"])
@@ -358,8 +362,9 @@ class SweepStep:
 
     def propose(self, generators, state, extras):
         """dict of `active` bool[I], `ok` (active and a winner exists),
-        the winner `delta` (leaves [I, K]), its `exact` i32[I, S] delta
-        row, the tabu `info` and the `stats` counters."""
+        the winner `delta` (leaves [I, K]), its `exact` integer [I, S]
+        delta row (`STUB_INT` where there is no winner), the tabu `info`
+        and the `stats` counters."""
         with span("gj.agent.propose"):
             active = extras.get("_active")
             if active is None:
@@ -372,7 +377,7 @@ class SweepStep:
                 generators, state["ctx"], free,
                 self.cfg.tabu_masks(state["tabu"]), self.sweep_cfg,
                 self.utils)
-            ok = active & (exact[:, 0] != torch.iinfo(exact.dtype).max)
+            ok = active & (exact[:, 0] != STUB_INT)
             return {"active": active, "ok": ok, "delta": delta,
                     "exact": exact, "info": info, "stats": stats}
 

@@ -139,8 +139,9 @@ class TabuSearch:
                 winner = {**winner,
                           "valid": winner["valid"] & accept[:, None]}
                 state = dict(state)
-                state["population"] = moves.apply_delta(base_row,
-                                                        winner)[:, None]
+                with span("gj.agent.apply"):
+                    state["population"] = moves.apply_delta(
+                        base_row, winner)[:, None]
                 state["ctx"] = requester.update_ctx(state["ctx"], winner)
                 # guarded: a rejected / inactive step keeps the stored score
                 new_score = (cand_row if cand_row is not None
@@ -221,8 +222,9 @@ class TabuSearch:
                 winner = {**p["delta"],
                           "valid": p["delta"]["valid"] & accept[:, None]}
                 state = dict(state)
-                state["population"] = moves.apply_delta(
-                    state["population"][:, 0], winner)[:, None]
+                with span("gj.agent.apply"):
+                    state["population"] = moves.apply_delta(
+                        state["population"][:, 0], winner)[:, None]
                 state["ctx"] = requester.update_ctx(state["ctx"], winner)
                 new_score = (cand_row if cand_row is not None
                              else requester.ctx_score_row(state["ctx"]))

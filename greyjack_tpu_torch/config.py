@@ -36,5 +36,11 @@ SCRAMBLE_MAX = 6
 # static width of a move in delta form
 DELTA_MOVE_SIZE = 2 * MAX_MOVE_SIZE
 
+# the widest delta that `ops/moves.py` `dedupe_delta` and `ops/segments.py`
+# `nunique_delta` analyse with their [K, K] forms: every random move's
+# delta, where those forms take fewer launches than a sort; wider ones (the
+# sweep's whole-tour winners) take sort forms that build no [K, K] mask
+MAX_NARROW_DELTA = DELTA_MOVE_SIZE
+
 # static cap on the per-group tabu ring buffer length
 MAX_TABU_SIZE = 128

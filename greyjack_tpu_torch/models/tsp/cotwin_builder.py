@@ -8,8 +8,9 @@ tour distance.
 Shapes: the plain path scores a population (leading axis P); the delta path
 keeps one ctx per island (leading axis I) and scores deltas [I, M, K] (M
 neighbours per island) against it, applying one accepted delta [I, K] per
-island in `update_ctx`. Every integer result and every f64 row is bit-equal
-to the JAX package's.
+island in `update_ctx` (a scatter into the tour and an O(N) rebuild of
+its ctx). Every integer result and every f64 row is bit-equal to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def build_delta_ctx(planning, facts, utils):
     zero = torch.zeros((ni, 1), dtype=s.dtype, device=s.device)
     sl = torch.cat([zero, s], dim=1)
     sr = torch.cat([s, zero], dim=1)
-    legs = dmf[(sl * l + sr).long()]                            # [I, N+1]
+    legs = dmf[sl.long() * l + sr]                              # [I, N+1]
     soft_milli = torch.sum(legs, dim=1, dtype=_I64)
     hard = (n - torch.sum(counts > 0, dim=1)).to(_I32)
     return {"s": s, "counts": counts, "legs": legs,
@@ -112,10 +113,11 @@ def build_delta_ctx(planning, facts, utils):
 
 
 def _delta_parts(ctx, delta, utils):
-    """O(K) analysis of every delta (leaves [I, M, K]) against its island's
-    ctx: changed rows, the affected legs (rows and rows+1, deduplicated
-    after a sort), the exact n_unique and distance-milli deltas
-    ([I, M] each)."""
+    """O(K log K) analysis of every delta (leaves [I, M, K]) against its
+    island's ctx: the exact n_unique and distance-milli deltas ([I, M]
+    each), the latter over the affected legs (rows and rows+1,
+    deduplicated after a sort). Flat matrix indices are i64, so any L
+    whose matrix fits the device indexes exactly."""
     delta = moves.dedupe_delta(delta)
     l = utils["n_locations"]
     dmf = utils["dm_flat_milli"]
@@ -139,24 +141,29 @@ def _delta_parts(ctx, delta, utils):
     lvalid = lfirst & (sortedl <= n)
     old_leg = _take(ctx["legs"], torch.clamp(sortedl, max=n))
 
+    # positions are looked up in the valid rows sorted once (a stable sort
+    # keeps the earliest of equal rows first), with no [2K, K] match;
+    # invalid rows sort last under a sentinel no j reaches
+    k = rows.shape[-1]
+    big = torch.iinfo(rows.dtype).max
+    srows, order = torch.sort(torch.where(valid, rows, big), dim=-1,
+                              stable=True)
+    snv = torch.gather(nv, -1, order)
+
     def patched(j):
         # tour value at position j after the patch; the depot at j=-1 / j=n
         base_val = torch.where((j < 0) | (j >= n), 0,
                                _take(s, torch.clamp(j, 0, n - 1)))
-        match = ((rows[..., None, :] == j[..., :, None])
-                 & valid[..., None, :])                        # [.., 2K, K]
-        first = torch.argmax(match.to(_I32), dim=-1)
-        pick = torch.gather(nv, -1, first)
-        return torch.where(torch.any(match, dim=-1), pick, base_val)
+        at = torch.clamp(torch.searchsorted(srows, j), max=k - 1)
+        hit = torch.gather(srows, -1, at) == j
+        return torch.where(hit, torch.gather(snv, -1, at), base_val)
 
     u = patched(sortedl - 1)
     w = patched(sortedl)
-    new_leg = dmf[torch.clamp(u * l + w, 0, l * l - 1).long()]
+    new_leg = dmf[torch.clamp(u.long() * l + w, 0, l * l - 1)]
     d_soft = torch.sum(torch.where(lvalid, (new_leg - old_leg).to(_I64), 0),
                        dim=-1)
-    return {"rows": rows, "valid": valid, "nv": nv, "old": old,
-            "leg_ids": sortedl, "leg_valid": lvalid, "new_leg": new_leg,
-            "d_unique": d_unique, "d_soft": d_soft}
+    return d_unique, d_soft
 
 
 def score_delta(ctx, deltas, utils):
@@ -164,9 +171,9 @@ def score_delta(ctx, deltas, utils):
     histogram's exact n_unique delta and the distance delta over the <= 2K
     affected legs, equal to a full rescore of the patched tour bit for bit
     (integer-milli semantics)."""
-    p = _delta_parts(ctx, deltas, utils)
-    hard = (ctx["hard"][:, None] - p["d_unique"]).to(torch.float64)
-    soft = true_div((ctx["soft_milli"][:, None] + p["d_soft"]).to(
+    d_unique, d_soft = _delta_parts(ctx, deltas, utils)
+    hard = (ctx["hard"][:, None] - d_unique).to(torch.float64)
+    soft = true_div((ctx["soft_milli"][:, None] + d_soft).to(
         torch.float64), 1000.0)
     return torch.stack([hard, soft], dim=-1)
 
@@ -189,26 +196,19 @@ def ctx_int_totals(ctx, utils):
 
 
 def update_ctx(ctx, delta, utils):
-    """Apply one accepted delta per island (leaves [I, K]) in O(K) scatters;
-    a delta with no valid entry is the identity. Deduplicated positions
-    give distinct rows, and the first of each equal sorted leg id is the
-    only valid one, so no kept index is written twice."""
-    p = _delta_parts(ctx, {k: x[:, None] for k, x in delta.items()}, utils)
-    p = {k: x[:, 0] for k, x in p.items()}
-    l = utils["n_locations"]
-    n = ctx["s"].shape[1]
-    valid = p["valid"]
-    drop = segments.scatter_drop
-    one = torch.ones_like(p["nv"])
-    s2 = drop(ctx["s"], torch.where(valid, p["rows"], n), p["nv"])
-    counts2 = drop(drop(ctx["counts"], torch.where(valid, p["old"], l), -one,
-                        add=True),
-                   torch.where(valid, p["nv"], l), one, add=True)
-    legs2 = drop(ctx["legs"], torch.where(p["leg_valid"], p["leg_ids"], n + 1),
-                 p["new_leg"])
-    return {"s": s2, "counts": counts2, "legs": legs2,
-            "hard": ctx["hard"] - p["d_unique"],
-            "soft_milli": ctx["soft_milli"] + p["d_soft"]}
+    """Apply one accepted delta per island (leaves [I, K]): its values are
+    scattered into the tour (deduplicated positions give distinct rows, so
+    no kept index is written twice) and the ctx of the patched tour is
+    rebuilt, O(K + N) whatever the width; a delta with no valid entry is
+    the identity."""
+    delta = moves.dedupe_delta(delta)
+    s = ctx["s"]
+    rows = utils["delta_schema"]["var_row"][delta["positions"].long()]
+    s2 = segments.scatter_drop(
+        s, torch.where(delta["valid"], rows, s.shape[1]),
+        torch.round(delta["values"]).to(_I32))
+    return build_delta_ctx({"path_stops": {"locations_vec_id": s2}}, None,
+                           utils)
 
 
 class CotwinBuilder(CotwinBuilderBase):

@@ -17,12 +17,21 @@ delta `cfg.kd` wide, by default the whole tour, so reversal and insertion
 spans are uncapped; its exact (d_hard, d_dist) row comes straight from the
 family tiles.
 
+The matrices stay i32 (every leg below 2^31 thousandths). The distance
+sums, the keys and the exact row are i32 where the host-side bound leaves
+headroom (`cfg.acc`), as on the JAX package's instances, and i64 at
+larger magnitudes (the DIMACS classes' 10^6 square): each gathered leg is
+widened, never the matrices.
+
 Every function carries a leading island axis I: ctx leaves [I, ...],
 target rows [I, T], outputs [I, ...]. The JAX module fetches distance-
 matrix rows and columns with one-hot matmuls and picks target values with
 masked sums (a TPU has no fast gather); here they are integer gathers of
-the i32 milli matrix, which give the same integers. Every result equals
-the JAX package's bit for bit, dtype included.
+the i32 milli matrix, which give the same integers. On the instances the
+JAX package engages the sweep on (distances below 2^24 thousandths) every
+integer equals the JAX package's; the dtype is the same too where
+`cfg.acc` is i32, and i64 where the tour's bound reaches 2^31 thousandths
+(the JAX package keeps i32 there).
 """
 
 from __future__ import annotations
@@ -41,21 +50,27 @@ _DEFAULT_TARGETS = 64   # sampled tour positions per island-step
 
 
 def eligible(utils):
-    """Static eligibility, the JAX package's: distance magnitudes below
-    2^24 (its one-hot matmuls are f32-exact there; kept so both packages
-    engage the sweep on the same instances) and fewer than 2^16 locations
-    (i32-safe flat indices and distance deltas)."""
-    if utils.get("dm_max_milli", 1 << 30) >= (1 << 24):
-        return False
-    if utils["n_locations"] >= (1 << 16):
-        return False
-    return True
+    """Static eligibility: every leg fits the i32 milli matrix (the
+    host-side bound `dm_max_milli` below 2^31). Flat matrix indices are
+    i64 and the sums widen to i64 where they need to (`acc_dtype`), so
+    nothing else bounds the instance."""
+    return utils.get("dm_max_milli", 1 << 31) < (1 << 31)
+
+
+def acc_dtype(utils, n_rows):
+    """The static dtype of the family sums, keys and exact row: i32 where
+    six legs (the largest same-signed run in a family sum) and the whole
+    tour's N + 1 legs stay below 2^31 thousandths by the host-side bound,
+    else i64."""
+    legs = max(6, n_rows + 1)
+    return _I32 if legs * utils["dm_max_milli"] < (1 << 31) else _I64
 
 
 class SweepConfig:
     """Host-compiled statics on the requester's device: variable ids (one
     per tour position), the single semantic group's slot maps, the milli
-    matrix with its transpose, and the winner-delta width `kd`."""
+    matrix with its transpose, the winner-delta width `kd` and the sums'
+    dtype `acc`."""
 
     def __init__(self, requester, targets=None, window=None):
         # explicit None check: `targets or default` would swallow 0
@@ -99,6 +114,7 @@ class SweepConfig:
         self.dmT = self.dm.T.contiguous()
         self.kd = (self.n_rows if self.window <= 0
                    else min(self.n_rows, self.window))
+        self.acc = acc_dtype(utils, self.n_rows)
 
     def conservative_moves_per_step(self, utils, tabu_rate):
         """Static lower bound on candidates per island-step, for throughput
@@ -120,17 +136,18 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
                      utils):
     """Exact delta arrays of the four families for target rows i32[I, T]
     (t_valid bool[I, T], row_tabu bool[I, N]): hard = duplicate-count
-    delta, dist = tour-milli delta, with validity masks, plus the target
-    values the winner decode needs."""
+    delta (i32), dist = tour-milli delta (`cfg.acc`), with validity masks,
+    plus the target values the winner decode needs."""
     ni, t = t_rows.shape
     l = utils["n_locations"]
     lc = l - 1                              # legal values 1..L-1
     n = cfg.n_rows
     dm, dmt = cfg.dm, cfg.dmT
     dmf = utils["dm_flat_milli"]
+    acc = cfg.acc                           # each gathered leg widens to it
     s = ctx["s"]
     counts = ctx["counts"]
-    legs = ctx["legs"]                      # [I, N+1]
+    legs = ctx["legs"].to(acc)              # [I, N+1]
     dev = s.device
 
     with span("gj.sweep.tables"):
@@ -150,10 +167,10 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
         t_inleg = pick(legs[:, :-1])        # legs[t]
         t_outleg = pick(legs[:, 1:])        # legs[t+1]
 
-        row_p = dm[t_p.long()]              # dm[prev, :]    [I, T, L]
-        row_n = dmt[t_n.long()]             # dm[:, next]
-        row_s = dm[t_c.long()]              # dm[c_t, :]
-        row_sT = dmt[t_c.long()]            # dm[:, c_t]
+        row_p = dm[t_p.long()].to(acc)      # dm[prev, :]    [I, T, L]
+        row_n = dmt[t_n.long()].to(acc)     # dm[:, next]
+        row_s = dm[t_c.long()].to(acc)      # dm[c_t, :]
+        row_sT = dmt[t_c.long()].to(acc)    # dm[:, c_t]
         t_io = (t_inleg + t_outleg)[..., None]
 
     # --- change [T, Lc]: values c = 1..L-1 ----------------------------------
@@ -176,8 +193,8 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
         legs_j = legs[:, None, :-1]
         legs_j1 = legs[:, None, 1:]
         g = rps + rns + rstp + rsn - t_io - (legs_j + legs_j1)
-        rev_in = dmf[(t_c * l + t_p).long()]    # dm[c_t, prev_t]
-        rev_out = dmf[(t_n * l + t_c).long()]   # dm[next_t, c_t]
+        rev_in = dmf[t_c.long() * l + t_p].to(acc)    # dm[c_t, prev_t]
+        rev_out = dmf[t_n.long() * l + t_c].to(acc)   # dm[next_t, c_t]
         tr = t_rows[..., None]
         is_next = tr + 1 == iota_n
         is_prev = tr - 1 == iota_n
@@ -204,7 +221,7 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     # --- or-opt insertion [T, N]: the target's city moves to sit right
     # after position j (remove splice + insert splice) ----------------------
     with span("gj.sweep.or_opt"):
-        splice_t = dmf[(t_p * l + t_n).long()]  # dm[p_t, n_t]
+        splice_t = dmf[t_p.long() * l + t_n].to(acc)  # dm[p_t, n_t]
         rss = _cols(row_sT, s)                  # dm[c_j, c_t]
         i_dist = ((splice_t - t_inleg - t_outleg)[..., None] + rss + rsn
                   - legs_j1)
@@ -262,9 +279,9 @@ def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
                          utils):
     """The deterministic half of `propose`: score the four families of the
     given targets, take the lexicographic winner and decode it. Returns
-    (winner_delta width cfg.kd, exact i32[I, 2] (d_hard, d_dist_milli),
-    tabu_info, stats); `exact` is INT32_MAX-stubbed when no candidate is
-    valid (the accept rule then rejects)."""
+    (winner_delta width cfg.kd, exact [I, 2] (d_hard, d_dist_milli) in
+    `cfg.acc`, tabu_info, stats); `exact` is INT32_MAX-stubbed, in either
+    dtype, when no candidate is valid (the accept rule then rejects)."""
     n = cfg.n_rows
     l = utils["n_locations"]
     lc = l - 1
@@ -274,7 +291,7 @@ def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
 
     with span("gj.sweep.select"):
         def keyrow(hard, dist, val):
-            k2 = torch.stack([hard, dist], dim=-1)
+            k2 = torch.stack([hard.to(cfg.acc), dist], dim=-1)
             return torch.where(val[..., None], k2, _STUB).reshape(ni, -1, 2)
 
         keys_all = torch.cat([
@@ -351,7 +368,7 @@ def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
     with span("gj.sweep.exact"):
         # the winner's exact (d_hard, d_dist) straight from the family
         # tiles: every TSP family delta is exact closed-form leg arithmetic
-        exact = torch.where(any_valid[:, None], best_key, _STUB).to(_I32)
+        exact = torch.where(any_valid[:, None], best_key, _STUB).to(cfg.acc)
 
     with span("gj.sweep.select"):
         # the tabu rings hold group slots, not tour rows: map through

@@ -695,33 +695,47 @@ def move_population(generators, population, vm, cfg, tabu_state):
 
 def dedupe_delta(delta):
     """Mask out later duplicates of the same position (their values are
-    equal, so dropping them is exact). Works over any leading axes."""
+    equal, so dropping them is exact). Works over any leading axes.
+
+    Up to `config.MAX_NARROW_DELTA` entries by one [K, K] comparison;
+    wider deltas by a stable sort of the valid positions, whose first of
+    each run of equal positions is the earliest entry."""
     pos = delta["positions"]
+    valid = delta["valid"]
     k = pos.shape[-1]
+    if k > config.MAX_NARROW_DELTA:
+        # invalid entries sort first under -1 (positions are ids >= 0)
+        srt, order = torch.sort(torch.where(valid, pos, -1), dim=-1,
+                                stable=True)
+        first = torch.cat([torch.ones_like(valid[..., :1]),
+                           srt[..., 1:] != srt[..., :-1]], dim=-1)
+        keep = torch.empty_like(first).scatter_(-1, order, first)
+        return {**delta, "valid": valid & keep}
     idx = torch.arange(k, device=pos.device)
     eq = ((pos[..., :, None] == pos[..., None, :])
-          & delta["valid"][..., :, None] & delta["valid"][..., None, :])
+          & valid[..., :, None] & valid[..., None, :])
     earlier_dup = torch.any(eq & (idx[None, :] < idx[:, None]), dim=-1)
-    return {**delta, "valid": delta["valid"] & ~earlier_dup}
+    return {**delta, "valid": valid & ~earlier_dup}
 
 
 def apply_delta(base, delta):
-    """Materialize one delta per island: base f[I, V], delta leaves [I, K].
-    Later delta entries win on position collisions. Narrow deltas
-    (K <= 8) unroll to K selects; wide ones take the last valid entry
-    matching each position from one [I, K, V] match."""
+    """Materialize one delta per island: base f[I, V], delta leaves [I, K]
+    (valid positions in [0, V)). Later delta entries win on position
+    collisions. Narrow deltas (K <= 8) unroll to K selects; wider ones
+    write each position's last valid entry, found by a max-scatter of the
+    entry indices (order-free, so the same on every device), in O(K + V)."""
     kd = delta["positions"].shape[-1]
-    iota = torch.arange(base.shape[-1], dtype=torch.int32, device=base.device)
     if kd > 8:
-        match = delta["valid"][..., None] & (
-            delta["positions"][..., None] == iota)            # [I, K, V]
-        kidx = torch.arange(kd, dtype=torch.int32, device=base.device)
-        last_k = torch.amax(torch.where(match, kidx[:, None], -1), dim=-2)
-        val = torch.sum(torch.where(
-            kidx[:, None] == last_k[..., None, :],
-            delta["values"][..., None].to(base.dtype), 0), dim=-2,
-            dtype=base.dtype)
-        return torch.where(last_k >= 0, val, base)
+        n_isl, v = base.shape
+        kidx = torch.arange(kd, device=base.device).expand(n_isl, kd)
+        # invalid entries go to a sentinel column that is cut off
+        pos = torch.where(delta["valid"], delta["positions"].long(), v)
+        last_k = torch.full((n_isl, v + 1), -1, dtype=torch.int64,
+                            device=base.device).scatter_reduce_(
+            1, pos, kidx, reduce="amax")[:, :v]
+        val = torch.gather(delta["values"], 1, torch.clamp(last_k, min=0))
+        return torch.where(last_k >= 0, val.to(base.dtype), base)
+    iota = torch.arange(base.shape[-1], dtype=torch.int32, device=base.device)
     out = base
     for k in range(kd):
         m = delta["valid"][:, k, None] & (iota == delta["positions"][:, k, None])

@@ -3,6 +3,8 @@ batched over leading axes."""
 
 import torch
 
+from greyjack_tpu_torch import config
+
 
 def count_minus_n_unique(values, num_buckets=None):
     """`len(values) - n_unique(values)` along the last axis: values int[..., N]
@@ -57,7 +59,11 @@ def nunique_delta(counts, old_vals, new_vals, valid):
 
     counts: i32[I, L] (one histogram per island); old_vals, new_vals, valid:
     [I, M, K]. Returns i32[I, M]. Per distinct touched value v with base count
-    c and net occupancy change d, n_unique changes by (c+d > 0) - (c > 0)."""
+    c and net occupancy change d, n_unique changes by (c+d > 0) - (c > 0).
+
+    Up to `config.MAX_NARROW_DELTA` entries by one [2K, 2K] comparison;
+    wider deltas by a sort of the 2K touched values, each run of equal
+    values summed by a prefix sum and counted once at its end."""
     l = counts.shape[-1]
     k = old_vals.shape[-1]
     sent = torch.tensor(l, dtype=torch.int32, device=counts.device)
@@ -65,16 +71,29 @@ def nunique_delta(counts, old_vals, new_vals, valid):
                       torch.where(valid, new_vals.to(torch.int32), sent)], -1)
     one = valid.to(torch.int32)
     d = torch.cat([-one, one], -1)
-    eq = vals[..., :, None] == vals[..., None, :]
-    net = torch.sum(torch.where(eq, d[..., None, :], 0), dim=-1,
-                    dtype=torch.int32)
-    idx = torch.arange(2 * k, device=counts.device)
-    earlier_dup = torch.any(eq & (idx[None, :] < idx[:, None]), dim=-1)
+    if k > config.MAX_NARROW_DELTA:
+        vals, order = torch.sort(vals, dim=-1)
+        d = torch.gather(d, -1, order)
+        csum = torch.cumsum(d, dim=-1, dtype=torch.int32)
+        step = vals[..., 1:] != vals[..., :-1]
+        edge = torch.ones_like(step[..., :1])
+        idx = torch.arange(2 * k, device=counts.device)
+        # the index where each entry's run of equal values starts
+        start = torch.cummax(torch.where(torch.cat([edge, step], -1), idx, 0),
+                             dim=-1).values
+        net = csum - torch.gather(csum - d, -1, start)   # the run's sum so far
+        counted = torch.cat([step, edge], -1)            # the run's last entry
+    else:
+        eq = vals[..., :, None] == vals[..., None, :]
+        net = torch.sum(torch.where(eq, d[..., None, :], 0), dim=-1,
+                        dtype=torch.int32)
+        idx = torch.arange(2 * k, device=counts.device)
+        counted = ~torch.any(eq & (idx[None, :] < idx[:, None]), dim=-1)
     flat = torch.clamp(vals, max=l - 1).reshape(vals.shape[0], -1).long()
     cb = torch.gather(counts, 1, flat).reshape(vals.shape)
     contrib = (((cb + net) > 0).to(torch.int32)
                - (cb > 0).to(torch.int32))
-    mask = ~earlier_dup & (vals < l)
+    mask = counted & (vals < l)
     return torch.sum(torch.where(mask, contrib, 0), dim=-1,
                      dtype=torch.int32)
 

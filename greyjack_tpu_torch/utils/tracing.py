@@ -34,6 +34,8 @@ read by the trace's idle breakdown alone.
     gj.agent.propose     the sweep step's proposal: tabu masks, the
                          model's `propose`, the active-winner mask
     gj.agent.accept      winner, acceptance, apply, tabu push, best, step
+    gj.agent.apply       the winner written into the population (in
+                         gj.agent.accept)       winner_apply_device_ms
   sweep (`models/vrp/sweep.py`, `models/tsp/sweep.py`)
     gj.sweep.propose     the whole proposal          sweep_propose_device_ms
     gj.sweep.targets     target draw and tabu rows
@@ -41,6 +43,7 @@ read by the trace's idle breakdown alone.
                          TSP: the targets' distance-matrix rows
     gj.sweep.change / .vehicle / .swap           (VRP candidate families)
     gj.sweep.change / .swap / .two_opt / .or_opt (TSP candidate families)
+                                                 sweep_families_device_ms
     gj.sweep.select      winner, decode, tabu info, stats
     gj.sweep.exact       the winner's exact delta row
   delta scorer (`ScoreRequester.request_score_delta[_ints]`,
@@ -48,7 +51,8 @@ read by the trace's idle breakdown alone.
     gj.delta.score                                   delta_score_host_ms
     gj.delta.pre / .kernel / .post    the fused kernel's three stages
   ctx update (`ScoreRequester`)
-    gj.ctx.update        `update_ctx`                ctx_update_host_ms
+    gj.ctx.update        `update_ctx`                ctx_update_host_ms,
+                                                     winner_apply_device_ms
     gj.ctx.build         `build_base_ctx`
   plain score (`ScoreRequester.request_score_plain`)
     gj.score.plain                                   plain_rescore_device_ms

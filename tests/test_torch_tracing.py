@@ -40,6 +40,7 @@ _COMMON = {
 }
 _CTX = {
     "gj.runner.prestep": "gj.runner.step",
+    "gj.agent.apply": "gj.agent.accept",
     "gj.ctx.update": "gj.agent.accept",
     "gj.ctx.build": "gj.runner.refresh",
 }
