@@ -51,7 +51,15 @@ Phases, each fatal on failure:
      `do_move_delta` and `apply_delta` (wide and narrow) with their tabu
      info for the flagship's variables, 8 islands x 256 candidates, under
      each single move type and the six-equal mix, mutation multiplier
-     None and 1.0, tabu on;
+     None and 1.0, tabu on; then the plain sampler kernel
+     (`csrc/move_sample.cu`) against the torch body on the card
+     (`fix_all(do_move(...))` and the tabu info), fed the same uniforms,
+     bit-equal, at TS-plain's shape (8 islands x 2048 candidates, 2,000
+     variables, six equal moves, tabu 0.2) on the island's base expanded
+     with stride 0 and on a real population off the grid; and its time:
+     device only (a CUDA graph of `move_and_fix`), with the wrapper, the
+     torch body's and the draw's, beside its byte bound from the run's
+     inputs;
  10. the plain path through `Solver.solve` on the flagship: GA (8 islands
      x 128, 200 steps) and GA-wide (64 x 128, 50 steps) with the delta
      cotwin (GA always rescores), TS-plain (8 x 2048, six equal moves, 50
@@ -60,7 +68,9 @@ Phases, each fatal on failure:
      cotwin (8 x 2048, kd 16, 50 steps), which must report the JAX
      package's label "int-delta" and score the f64 `score_delta` rows
      with no kernel launch. Each must report its path, and its score must
-     equal a plain rescore, bit for bit;
+     equal a plain rescore, bit for bit; TS-, LA- and SA-plain must launch
+     the sampler kernel, GA, GA-wide and the six-move delta solve must
+     not (nor LSHADE in phase 11);
  11. LSHADE on the flagship in `scripts/bench_mh.py`'s configuration
      (population 128, archive 128, one forced column, change / swap):
      first one body step on the card vs on the CPU from the same state and
@@ -203,6 +213,12 @@ NQ_N, NQ_SEED, NQ_NEIGHBOURS = 256, 45, 20
 NQ_PROBAS = [0.0, 1.0, 0.0, 0.0, 0.0, 0.0]
 KERNEL_SOURCE = "greyjack_tpu_torch/csrc/vrp_delta.cu"
 KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
+SAMPLER_SOURCE = "greyjack_tpu_torch/csrc/move_sample.cu"
+# no TPU kernel: the JAX package's sampler and fix are XLA ops
+SAMPLER_REPLACES = "greyjack_tpu/ops/moves.py:668 (XLA ops)"
+# the plain solves that step through `PlainMoveStep`, so through the
+# sampler kernel; GA and LSHADE move their children with the torch body
+KERNEL_PLAIN = ("TS-plain", "LA-plain", "SA-plain")
 
 
 def fail(msg):
@@ -716,6 +732,134 @@ def move_parity(n_isl=8, n=256, seed=13):
           f"{n_cases - n_wide} narrow) bit-equal, card vs CPU", flush=True)
 
 
+def sampler_bound(u, columns, pop, vm, cfg, masks):
+    """(bytes read, bytes written, bound_ms) of one sampler-kernel call on
+    these inputs, over the H100's 3.35 TB/s: of u, the columns each
+    candidate reads (four scalars, the Gumbel columns of its group's valid
+    positions, the Binomial columns where the rate is not 0, at most
+    SCRAMBLE_MAX permutation keys for a scramble and MAX_MOVE_SIZE values
+    for a change), its row of the candidates (a stride-0 base once an
+    island), its island's tabu masks and the fix's tables once; the rows
+    and the info written once."""
+    import torch
+    from greyjack_tpu_torch import config
+    from greyjack_tpu_torch.ops import move_kernel
+
+    n_isl, p, v = pop.shape
+    lmax = cfg.max_group_size
+    dims = move_kernel.noise_dims(columns, v, lmax)
+    mt = (cfg.thresholds < u[..., dims["off_move"], None]).sum(-1)
+    n_g = dims["g_hi"] - dims["g_lo"]
+    g = torch.clamp(torch.floor(u[..., dims["off_g"]] * n_g), max=n_g - 1)
+    limit = (cfg.group_sizes[g.long()].long() - (mt == 2).long()).clamp(min=0)
+    cols = (4 + limit + (mt == 0).long() * config.MAX_MOVE_SIZE
+            + (mt == 3).long() * config.SCRAMBLE_MAX)
+    if dims["off_count"] >= 0:
+        cols = cols + v
+    elt = pop.element_size()
+    n_groups = vm.group_members.shape[0]
+    rows = n_isl if pop.stride(1) == 0 else n_isl * p
+    n_read = (8 * int(cols.sum()) + rows * v * elt
+              + (0 if masks is None else masks.numel())
+              + v * (3 * elt + 2) + n_groups * (4 * lmax + 12) + 48)
+    n_written = n_isl * p * (v * elt + 4 * (config.MAX_MOVE_SIZE + 2))
+    return n_read, n_written, (n_read + n_written) / 3.35e12 * 1e3
+
+
+def sampler_phase(card, seed=19):
+    """Phase 9, second half: the plain sampler kernel against the torch
+    body on the card, fed the same uniforms, at TS-plain's shape (8
+    islands x 2048 candidates, six equal moves, tabu 0.2, the rings filled
+    by six rounds of pushes): on the island's base expanded with stride 0
+    over the candidates, as TabuSearch passes it, and on a real population
+    off the grid and out of bounds. The rows (bit for bit) and the tabu
+    info must equal `fix_all(do_move(...))`'s. Then the kernel's times on
+    the stride-0 base beside its bound; returns them for the kernel
+    table."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder
+    from greyjack_tpu_torch.ops import move_kernel, moves
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    req = ScoreRequester(CotwinBuilder(False, True).build_cotwin(
+        flagship_domain(), False))
+    vm = req.variables_manager
+    cfg = moves.MoverConfig(vm, TABU_RATE, None, None)
+    n_isl, p, v = N_ISLANDS, PLAIN_NEIGHBOURS, vm.variables_count
+    gens = island_generators(seed, n_isl, DEVICE)
+    base = perturbed_bases(req, n_isl, seed).to(DEVICE, vm.float_dtype)
+    tabu = cfg.init_tabu_state(n_isl)
+    for r in range(6):
+        _, info = moves.do_move(
+            base[:, None].expand(n_isl, 64, v),
+            moves.draw_move_noise(gens, 64, vm, cfg, base.dtype), vm, cfg,
+            cfg.tabu_masks(tabu))
+        tabu = moves.update_tabu_from_info(
+            tabu, info, torch.full((n_isl,), r, device=DEVICE))
+    masks = cfg.tabu_masks(tabu)
+    real = torch.stack([vm.sample_variables(g, p) for g in gens])
+    real = real + 3.0 * torch.rand(real.shape, generator=gens[0],
+                                   dtype=real.dtype, device=DEVICE) - 1.5
+    stride0 = base[:, None].expand(n_isl, p, v)
+    fields = moves.move_noise_fields(vm, cfg)
+    columns = moves.field_columns(fields)
+
+    def body(u, pop):
+        moved, info = moves.do_move(
+            pop, moves.noise_leaves(u, fields, cfg, pop.dtype), vm, cfg,
+            masks)
+        return vm.fix_all(moved), info
+
+    launches = move_kernel.move_and_fix.launches
+    for label, pop in (("stride-0 base", stride0), ("real population", real)):
+        u = moves.draw_uniforms(gens, p, fields, DEVICE)
+        got, got_info = move_kernel.move_and_fix(u, columns, pop, vm, cfg,
+                                                 masks)
+        want, info = body(u, pop)
+        torch.cuda.synchronize()
+        if (got.dtype != want.dtype or got.shape != want.shape
+                or not torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8))):
+            fail(f"sampler kernel: {label} rows differ from the torch body")
+        for k in ("group", "positions", "count"):
+            if not torch.equal(got_info[k], info[k].to(torch.int32)):
+                fail(f"sampler kernel: {label} info {k} differs from the "
+                     "torch body")
+        moved_rows = int((got != vm.fix_all(pop.contiguous())).any(-1).sum())
+        if moved_rows == 0:
+            fail(f"sampler kernel: {label} moved nothing")
+        print(f"sampler kernel parity, {label}: {n_isl} x {p} candidates x "
+              f"{v} variables ({got.dtype}, six equal moves, tabu "
+              f"{TABU_RATE}): rows and info bit-equal to the torch body on "
+              f"the card; {moved_rows} rows moved", flush=True)
+    if move_kernel.move_and_fix.launches != launches + 2:
+        fail("sampler kernel: move_and_fix did not count its launches")
+
+    u = moves.draw_uniforms(gens, p, fields, DEVICE)
+    dev_ms, dev_all = graph_ms(lambda: move_kernel.move_and_fix(
+        u, columns, stride0, vm, cfg, masks))
+    w_ms, w_all = cuda_ms(lambda: move_kernel.move_and_fix(
+        u, columns, stride0, vm, cfg, masks))
+    p_ms, p_all = cuda_ms(lambda: body(u, stride0), inner=3)
+    d_ms, _ = cuda_ms(lambda: moves.draw_uniforms(gens, p, fields, DEVICE))
+    n_read, n_written, b_ms = sampler_bound(u, columns, stride0, vm, cfg,
+                                            masks)
+    print(f"sampler kernel time [{card}] at {n_isl} x {p} candidates: device "
+          f"only (CUDA graph of move_and_fix) {dev_ms:.5f} ms (runs "
+          f"{[round(t, 5) for t in dev_all]}); with the wrapper (event-timed)"
+          f" {w_ms:.4f} ms (runs {[round(t, 4) for t in w_all]}); torch body "
+          f"{p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]}); the draw "
+          f"{d_ms:.4f} ms; bound {b_ms:.5f} ms by bytes ({n_read} B read, "
+          f"{n_written} B written), {100 * b_ms / dev_ms:.1f}% of it",
+          flush=True)
+    return {"rows": n_isl * p, "dtype": str(stride0.dtype),
+            "device_ms": dev_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+            "draw_ms": d_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "bytes_read": n_read, "bytes_written": n_written}
+
+
 def plain_agent(label, steps):
     """The agents of phase 10, stopping after `steps` steps: GA / GA-wide
     (`scripts/bench_mh.py:112-121`), TabuSearch with the six equal moves
@@ -754,15 +898,19 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     must report `path`, the returned score must equal a plain rescore, bit
     for bit, and the six-move delta solve must not launch the delta kernel
     (kd 16 scores through the f64 `score_delta`; its label is the JAX
-    package's, which names the registered int rows)."""
+    package's, which names the registered int rows). The solves of
+    KERNEL_PLAIN must launch the sampler kernel, the others must not;
+    returns its launches."""
     import torch
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.ops import move_kernel
     from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
                                            SolverMetrics)
 
     metrics = SolverMetrics()
     dk._call_kernel.launches = 0
+    move_kernel.move_and_fix.launches = 0
     t0 = time.perf_counter()
     sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
                        CotwinBuilder(delta_cotwin, True),
@@ -781,6 +929,10 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
         fail(f"{label}: the solve ran {steps_run} steps")
     if launches != 0:
         fail(f"{label}: the solve launched the delta kernel {launches} times")
+    sampled = move_kernel.move_and_fix.launches
+    if (sampled > 0) != (label in KERNEL_PLAIN):
+        fail(f"{label}: the solve launched the sampler kernel {sampled} "
+             "times")
     score, start = check_solution(sol, label)
     summ = metrics.summary()
     steady = recs[1:]
@@ -789,11 +941,12 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     per_step = recs[0]["moves"] // (n_isl * recs[0]["steps"])
     print(f"{label} solve: {steps_run} steps x {n_isl} islands x {per_step} "
           f"moves in {solve_s:.3f} s, path {path}, delta kernel launches "
-          f"{launches}; greedy start {start} -> best {score} (= plain "
-          f"rescore)", flush=True)
+          f"{launches}, sampler kernel launches {sampled}; greedy start "
+          f"{start} -> best {score} (= plain rescore)", flush=True)
     print(f"{label} solve rate [{card}]: {summ['moves_per_s']:.1f} scored "
           f"moves/s over all chunks, {steady_mps:.1f} excluding the first "
           f"chunk; chunk ms {[r['wall_ms'] for r in recs]}", flush=True)
+    return sampled
 
 
 def to_device(tree, dev):
@@ -927,15 +1080,18 @@ def lshade_body_parity(n_isl=N_ISLANDS, seed=17):
 
 
 def lshade_solve(card, label, n_isl, steps):
-    """Phase 11b: an LSHADE flagship solve through `Solver.solve`."""
+    """Phase 11b: an LSHADE flagship solve through `Solver.solve`; it must
+    launch neither kernel."""
     import torch
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
+    from greyjack_tpu_torch.ops import move_kernel
     from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
                                            SolverMetrics)
 
     metrics = SolverMetrics()
     dk._call_kernel.launches = 0
+    move_kernel.move_and_fix.launches = 0
     t0 = time.perf_counter()
     with RunnerWatch("arc_count") as watch:
         sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
@@ -955,6 +1111,8 @@ def lshade_solve(card, label, n_isl, steps):
         fail(f"{label}: the solve ran {steps_run} steps")
     if launches != 0:
         fail(f"{label}: the solve launched the delta kernel {launches} times")
+    if move_kernel.move_and_fix.launches != 0:
+        fail(f"{label}: the solve launched the sampler kernel")
     if len(watch.seen) != len(recs) or max(watch.seen) > LSHADE_POP:
         fail(f"{label}: archive counts {watch.seen} (h = {LSHADE_POP})")
     score, start = check_solution(sol, label)
@@ -2029,7 +2187,7 @@ def profile(out_dir, path, n_chunks=3):
     from greyjack_tpu_torch.models.vrp import CotwinBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
     from greyjack_tpu_torch.models.vrp import sweep as sw
-    from greyjack_tpu_torch.ops import lexico, moves
+    from greyjack_tpu_torch.ops import lexico, move_kernel, moves
     from greyjack_tpu_torch.parallel import IslandRunner
     from greyjack_tpu_torch.score_calculation.score_requesters import (
         ScoreRequester)
@@ -2075,6 +2233,9 @@ def profile(out_dir, path, n_chunks=3):
         # the plain score is a bound method the kernel captures when it is
         # built: every stage is wrapped before the build
         stages = [(moves, "island_uniforms", "step.draw"),
+                  # the card's TS / LA / SA plain steps: the sampler kernel
+                  # moves and fixes; GA and LSHADE run the torch body
+                  (move_kernel, "move_and_fix", "step.move_kernel"),
                   (moves, "do_move", "step.move_body"),
                   # also counts the fix inside the plain score's frames
                   (req.variables_manager, "fix_all", "step.fix_all"),
@@ -2344,8 +2505,11 @@ def main(argv):
 
     # --- 7. the plain (full-rescore) path -------------------------------------
     move_parity()
+    sampler = sampler_phase(card)
+    sampler_launches = 0
     for label, n_isl, steps, delta_cotwin, path in PLAIN_SOLVES:
-        plain_solve(card, label, n_isl, steps, delta_cotwin, path)
+        sampler_launches += plain_solve(card, label, n_isl, steps,
+                                        delta_cotwin, path)
 
     # --- 8. LSHADE on the flagship (docstring phase 11) -----------------------
     lshade_body_parity()
@@ -2409,7 +2573,13 @@ def main(argv):
         "max_abs_err": max_err, "ms": flag["device_ms"],
         "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
         "bound_by": flag["bound_by"], "library_ms": None,
-        "shapes": shapes}]}), flush=True)
+        "shapes": shapes}, {
+        "name": "move_sample", "route": "cuda", "source": SAMPLER_SOURCE,
+        "replaces": SAMPLER_REPLACES, "launches": sampler_launches,
+        "max_abs_err": 0, "ms": sampler["device_ms"],
+        "plain_ms": sampler["plain_ms"], "bound_ms": sampler["bound_ms"],
+        "bound_by": sampler["bound_by"], "library_ms": None,
+        "shapes": [sampler]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

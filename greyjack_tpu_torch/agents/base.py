@@ -174,8 +174,6 @@ class PlainMoveStep:
         """(moved f[I, P, V], info, scores f64[I, P, S]) of `candidates`."""
         moved, info = moves.move_population(generators, candidates, self.vm,
                                             self.cfg, state["tabu"])
-        with span("gj.moves.sample"):
-            moved = self.vm.fix_all(moved)
         return moved, info, self.pop_score_fn(moved)
 
     def accept(self, state, moved, scores, accept, info, chosen):

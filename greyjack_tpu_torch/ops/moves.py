@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from greyjack_tpu_torch import config
-from greyjack_tpu_torch.ops import selection
+from greyjack_tpu_torch.ops import move_kernel, selection
 from greyjack_tpu_torch.utils.math_utils import round_decimal
 from greyjack_tpu_torch.utils.tracing import span
 
@@ -186,18 +186,32 @@ def island_uniforms(generators, shape, device):
                                    device=device) for g in generators])
 
 
-def _draw(generators, n, fields, vm, cfg, dtype):
-    """The noise leaves {name: [I, n, ...]} of `fields` ((name, width,
-    kind, arg); width None for a scalar leaf): one f64 `torch.rand` per
-    island of all widths packed, then each leaf's columns transformed by
-    its kind."""
-    dev = vm.device
-    width = sum(w or 1 for _, w, _, _ in fields)
-    u = island_uniforms(generators, (n, width), dev)
-    out, col = {}, 0
+def field_columns(fields):
+    """[(name, first column, columns, kind, arg)] of the leaves `fields`
+    ((name, width, kind, arg); width None for a scalar leaf) packed in
+    order into one draw."""
+    out, col = [], 0
     for name, w, kind, arg in fields:
-        x = u[..., col:col + (w or 1)]
+        out.append((name, col, w or 1, kind, arg))
         col += w or 1
+    return out
+
+
+def draw_uniforms(generators, n, fields, device):
+    """f64[I, n, W]: the uniforms of n draws of `fields` an island, every
+    leaf's columns packed as `field_columns` lays them out."""
+    width = sum(c[2] for c in field_columns(fields))
+    return island_uniforms(generators, (n, width), device)
+
+
+def noise_leaves(u, fields, cfg, dtype):
+    """The noise leaves {name: [I, n, ...]} of `fields` from their packed
+    uniforms u f64[I, n, W]: each leaf's columns transformed by its
+    kind."""
+    out = {}
+    for (name, w, kind, arg), (_, col, width, _, _) in zip(
+            fields, field_columns(fields)):
+        x = u[..., col:col + width]
         if w is None:
             x = x[..., 0]
         if kind == "f64" or (kind == "dtype" and dtype == torch.float64):
@@ -216,8 +230,16 @@ def _draw(generators, n, fields, vm, cfg, dtype):
     if "c_raw" not in out:
         # a zero rate never passes `u < rate`: no draw needed
         out["c_raw"] = torch.zeros(u.shape[:2], dtype=torch.int32,
-                                   device=dev)
+                                   device=u.device)
     return out
+
+
+def _draw(generators, n, fields, vm, cfg, dtype):
+    """The noise leaves of n draws of `fields` an island: one f64
+    `torch.rand` per island of all widths packed, then each leaf's
+    columns transformed by its kind."""
+    return noise_leaves(draw_uniforms(generators, n, fields, vm.device),
+                        fields, cfg, dtype)
 
 
 def _group_fields(vm, cfg):
@@ -227,19 +249,24 @@ def _group_fields(vm, cfg):
     return fields
 
 
-def draw_move_noise(generators, n, vm, cfg, dtype):
-    """The leaves `do_move` takes, for n candidates an island, in the
+def move_noise_fields(vm, cfg):
+    """(name, width, kind, arg) of the leaves `do_move` takes, in the
     layout of the JAX function's key split (`moves.py:198-234`): u_move
     f64, g / c_raw / k_scr i32, gumbel f32[lmax], u_start f32,
-    perm_gumbel f32[SCRAMBLE_MAX], u_res [MAX_MOVE_SIZE] of `dtype`."""
-    fields = ([("u_move", None, "f64", None)] + _group_fields(vm, cfg)
-              + [("gumbel", cfg.max_group_size, "gumbel", None),
-                 ("k_scr", None, "int",
-                  (config.SCRAMBLE_MIN, config.SCRAMBLE_MAX + 1)),
-                 ("u_start", None, "f32", None),
-                 ("perm_gumbel", config.SCRAMBLE_MAX, "gumbel", None),
-                 ("u_res", config.MAX_MOVE_SIZE, "dtype", None)])
-    return _draw(generators, n, fields, vm, cfg, dtype)
+    perm_gumbel f32[SCRAMBLE_MAX], u_res [MAX_MOVE_SIZE] of the rows'
+    dtype."""
+    return ([("u_move", None, "f64", None)] + _group_fields(vm, cfg)
+            + [("gumbel", cfg.max_group_size, "gumbel", None),
+               ("k_scr", None, "int",
+                (config.SCRAMBLE_MIN, config.SCRAMBLE_MAX + 1)),
+               ("u_start", None, "f32", None),
+               ("perm_gumbel", config.SCRAMBLE_MAX, "gumbel", None),
+               ("u_res", config.MAX_MOVE_SIZE, "dtype", None)])
+
+
+def draw_move_noise(generators, n, vm, cfg, dtype):
+    """The leaves `do_move` takes, for n candidates an island."""
+    return _draw(generators, n, move_noise_fields(vm, cfg), vm, cfg, dtype)
 
 
 def delta_noise_fields(vm, cfg):
@@ -684,13 +711,26 @@ def move_population_delta(generators, base, n_neighbours, vm, cfg,
 
 def move_population(generators, population, vm, cfg, tabu_state):
     """One random move on every candidate of population f[I, P, V]
-    (`greyjack_tpu/ops/moves.py:668-681`): returns (moved f[I, P, V],
-    info). The tabu masks are built once for the batch."""
+    (`greyjack_tpu/ops/moves.py:668-681`), fixed: returns
+    (`vm.fix_all` of the moved rows f[I, P, V], info). The tabu masks are
+    built once for the batch.
+
+    On a CUDA population one kernel (`ops/move_kernel.py`) moves and fixes
+    the candidates from the same draw; elsewhere the torch body does
+    (`do_move`, then `fix_all`), with the same rows."""
     with span("gj.moves.sample"):
-        noise = draw_move_noise(generators, population.shape[1], vm, cfg,
-                                population.dtype)
-        return do_move(population, noise, vm, cfg,
-                       cfg.tabu_masks(tabu_state))
+        if not population.is_cuda:
+            noise = draw_move_noise(generators, population.shape[1], vm, cfg,
+                                    population.dtype)
+            moved, info = do_move(population, noise, vm, cfg,
+                                  cfg.tabu_masks(tabu_state))
+            return vm.fix_all(moved), info
+        fields = move_noise_fields(vm, cfg)
+        u = draw_uniforms(generators, population.shape[1], fields, vm.device)
+        masks = cfg.tabu_masks(tabu_state)
+        with span("gj.moves.kernel"):
+            return move_kernel.move_and_fix(u, field_columns(fields),
+                                            population, vm, cfg, masks)
 
 
 def dedupe_delta(delta):

@@ -30,6 +30,8 @@ read by the trace's idle breakdown alone.
     gj.runner.refresh    the per-chunk ctx rebuild     runner_host_ms
   sampler (`ops/moves.py`, and the plain step's fix of the moved rows)
     gj.moves.sample                                  sample_host_ms
+    gj.moves.kernel      the plain sampler's CUDA kernel launch
+                         (`ops/move_kernel.py`)      sample_kernel_share
   agent step (`agents/tabu_search.py`, `agents/base.py`)
     gj.agent.propose     the sweep step's proposal: tabu masks, the
                          model's `propose`, the active-winner mask
