@@ -1,4 +1,5 @@
-"""Shared agent machinery (counterpart of `greyjack_tpu/agents/base.py`).
+"""Shared agent machinery (counterpart of `greyjack_tpu/agents/base.py`),
+and the one step of the local-search agents (`LocalSearch`).
 
 An agent ("island") state is a dict of tensors; all islands of a run are
 one state with a leading island axis I (the JAX package's island vmap,
@@ -103,7 +104,7 @@ def announce_fallback(builder, requester, score_precision):
         f"{builder.metaheuristic_name}: sweep=True requested but the sweep "
         f"fast path cannot engage — {reason}; falling back to the "
         "random-move path (orders of magnitude fewer scored moves/s)",
-        RuntimeWarning, stacklevel=3)
+        RuntimeWarning, stacklevel=4)
 
 
 def make_score_fn(requester, score_precision=None):
@@ -153,45 +154,6 @@ def plain_init_state(requester, cfg, pop_score_fn, population_size,
         return state
 
     return init_state
-
-
-class PlainMoveStep:
-    """The parts the plain local-search steps (TabuSearch, LateAcceptance,
-    SimulatedAnnealing with a full rescore) share: move every candidate
-    with the generic sampler, fix it, score it in one plain call; after
-    the accept rule, keep the accepted candidate, push the chosen
-    neighbour's touched slots into the tabu rings and refresh the island
-    best. These steps are not self-gating: the runner masks inactive
-    islands."""
-
-    def __init__(self, requester, cfg, score_precision):
-        self.vm = requester.variables_manager
-        self.cfg = cfg
-        self.pop_score_fn = make_population_score_fn(requester,
-                                                     score_precision)
-
-    def propose(self, generators, state, candidates):
-        """(moved f[I, P, V], info, scores f64[I, P, S]) of `candidates`."""
-        moved, info = moves.move_population(generators, candidates, self.vm,
-                                            self.cfg, state["tabu"])
-        return moved, info, self.pop_score_fn(moved)
-
-    def accept(self, state, moved, scores, accept, info, chosen):
-        """The island's candidate moved f[I, 1, V] with rows f64[I, 1, S]
-        replaces its solution where `accept` (bool[I]); then the tabu push
-        of neighbour `chosen` (int[I]), the island best and the step."""
-        with span("gj.agent.accept"):
-            state = dict(state)
-            keep = accept[:, None, None]
-            state["population"] = torch.where(keep, moved,
-                                              state["population"])
-            state["scores"] = torch.where(keep, scores, state["scores"])
-            if self.cfg.use_tabu:
-                state["tabu"] = moves.update_tabu_from_info(
-                    state["tabu"], info, chosen)
-            state = update_top(state)
-            state["step_id"] = state["step_id"] + 1
-            return state
 
 
 def make_delta_score_fn(requester, score_precision=None):
@@ -254,103 +216,276 @@ def mask_state(new_state, old_state, alive):
     return mask(new_state, old_state)
 
 
-def ctx_state_fns(requester, cfg, score_fn):
-    """(init_state, refresh, prestep) of the kernels that carry a delta ctx
-    per island: the initial population, scores, tabu rings and ctx; the
-    per-chunk ctx rebuild after migration; the per-step tabu free lists."""
-    vm = requester.variables_manager
-
-    def init_state(generators):
-        population = torch.stack(
-            [vm.sample_variables(g, 1) for g in generators])      # [I, 1, V]
-        n_isl, _, v = population.shape
-        scores = score_fn(population.reshape(n_isl, v)).reshape(n_isl, 1, -1)
-        state = base_state(population, scores)
-        state["tabu"] = cfg.init_tabu_state(n_isl)
-        state["ctx"] = requester.build_base_ctx(population[:, 0])
-        return state
-
-    def refresh(state):
-        state = dict(state)
-        state["ctx"] = requester.build_base_ctx(state["population"][:, 0])
-        return state
-
-    def prestep(state):
-        return {"_free": cfg.tabu_free(state["tabu"])}
-
-    return init_state, refresh, prestep
 
 
-def apply_winner(requester, state, winner, accept, cand):
-    """Apply each island's winning delta (leaves [I, K]) where `accept`
-    (bool[I]) holds, to the chromosome and the ctx, and store its score
-    row `cand` f64[I, S] there. Returns a new state dict."""
-    with span("gj.agent.accept"):
-        winner = {**winner, "valid": winner["valid"] & accept[:, None]}
-        state = dict(state)
-        with span("gj.agent.apply"):
-            state["population"] = moves.apply_delta(
-                state["population"][:, 0], winner)[:, None]
-        state["ctx"] = requester.update_ctx(state["ctx"], winner)
-        state["scores"] = torch.where(accept[:, None, None],
-                                      cand[:, None, :], state["scores"])
-        return state
+# --- the local-search step ---------------------------------------------------
+#
+# TabuSearch, LateAcceptance and SimulatedAnnealing share one step
+# (`LocalSearch.build_kernel`). `scoring_path` chooses its form once; the
+# form draws the proposal (`draw`), picks each island's candidate
+# (`choose`), writes the accepted one back (`commit`) and ends the step
+# (`finish`, the shared `step_tail`). The agent supplies its acceptance
+# rule and the state it keeps for it.
 
 
-class RandomMoveStep:
-    """The parts of the LateAcceptance / SimulatedAnnealing random-move
-    steps that do not depend on the accept rule: one move per island,
-    scored as an f64 row against the ctx in state, and the bookkeeping
-    after the write-back. These steps are not self-gating."""
+def scoring_path(agent, requester, score_precision):
+    """The one place a local-search agent's scoring path is chosen:
+    "sweep" when asked for and the model's sweep module and the precision
+    allow it; else, with a warning when the sweep was asked for, "delta"
+    when the model registers delta kernels, else "plain". Returns the path
+    and whether the integer fast paths are usable at this precision."""
+    precision_ok = fast_paths_ok(requester, score_precision)
+    if agent.sweep and requester.supports_sweep and precision_ok:
+        return "sweep", precision_ok
+    if agent.sweep:
+        announce_fallback(agent, requester, score_precision)
+    return ("delta" if requester.supports_delta else "plain"), precision_ok
 
-    def __init__(self, requester, cfg, score_precision):
-        self.requester = requester
+
+def active_of(extras, state):
+    """bool[I]: the runner's `_active` islands (all, when not given)."""
+    active = extras.get("_active")
+    if active is None:
+        active = torch.ones(state["step_id"].shape, dtype=torch.bool,
+                            device=state["step_id"].device)
+    return active
+
+
+def _first(tree):
+    """Leaves [I, P, ...] -> their row 0 [I, ...], as views."""
+    if isinstance(tree, dict):
+        return {key: x[:, 0] for key, x in tree.items()}
+    return tree[:, 0]
+
+
+def choose_best(p, key):
+    """Each island's candidate of the neighbourhood p["rows"] [I, P, S]:
+    the lexicographically best row (lowest index on ties; row 0, with no
+    search, where P = 1) as p["cand"], and p[key] and the tabu info picked
+    there. The info of P > 1 is picked by the step tail, and only where
+    tabu is on: p["chosen"] holds the index (None once picked)."""
+    rows = p["rows"]
+    if rows.shape[1] == 1:
+        p["chosen"], p["cand"] = None, rows[:, 0]
+        p[key], p["info"] = _first(p[key]), _first(p["info"])
+        return
+    p["chosen"] = lexico.lex_argmin(rows)                          # [I]
+    p["cand"] = moves.take_one(rows, p["chosen"])
+    p[key] = moves.take_one(p[key], p["chosen"])
+
+
+def step_tail(cfg, state, info, chosen=None, active=None):
+    """The end of every local-search step: the tabu push of the chosen
+    neighbour's touched slots (`info` [I, ...], or [I, P, ...] picked at
+    `chosen`; count 0 where `active` is False), the island best and the
+    step count (advanced by `active`). Without `active` the runner masks
+    inactive islands."""
+    if cfg.use_tabu:
+        row = info if chosen is None else moves.take_one(info, chosen)
+        count = (row["count"] if active is None
+                 else torch.where(active, row["count"], 0))
+        state["tabu"] = selection.tabu_push(state["tabu"], row["group"],
+                                            row["positions"], count)
+    state = update_top(state)
+    state["step_id"] = state["step_id"] + (
+        1 if active is None else active.to(state["step_id"].dtype))
+    return state
+
+
+class _Form:
+    refresh = prestep = None
+
+    def finish(self, state, p):
+        return step_tail(self.cfg, state, p["info"], p["chosen"],
+                         p["active"])
+
+
+class PlainMoveStep(_Form):
+    """The plain form, for cotwins without delta kernels: each neighbour is
+    a copy of the island's solution moved by the generic sampler, fixed and
+    scored by one plain call; the best replaces the solution where
+    accepted. Not self-gating: the runner masks inactive islands."""
+    path = label = "plain"
+    self_gating = False
+
+    def __init__(self, agent, requester, cfg, score_precision,
+                 precision_ok):
+        self.vm = requester.variables_manager
         self.cfg = cfg
-        self.delta_score_fn = make_delta_score_fn(requester, score_precision)
+        self.moves_per_step = agent.neighbours
+        self.pop_score_fn = make_population_score_fn(requester,
+                                                     score_precision)
+        self.init_state = plain_init_state(requester, cfg, self.pop_score_fn,
+                                           1)
 
-    def propose(self, generators, state):
-        """(winner delta leaves [I, K], tabu info, candidate row f64[I, S])."""
-        deltas, info = moves.move_population_delta(
-            generators, state["population"][:, 0], 1,
-            self.requester.variables_manager, self.cfg, state["tabu"])
-        cand = self.delta_score_fn(state["ctx"], deltas)[:, 0]
-        return {key: x[:, 0] for key, x in deltas.items()}, info, cand
+    def propose(self, generators, state, candidates):
+        """(moved f[I, P, V], info, scores f64[I, P, S]) of `candidates`."""
+        moved, info = moves.move_population(generators, candidates, self.vm,
+                                            self.cfg, state["tabu"])
+        return moved, info, self.pop_score_fn(moved)
 
-    def finish(self, state, info):
-        with span("gj.agent.accept"):
-            if self.cfg.use_tabu:
-                state["tabu"] = moves.update_tabu_from_info(
-                    state["tabu"], info,
-                    torch.zeros_like(state["step_id"], dtype=torch.int64))
-            state = update_top(state)
-            state["step_id"] = state["step_id"] + 1
-            return state
+    def draw(self, generators, state, extras):
+        moved, info, rows = self.propose(
+            generators, state,
+            state["population"].expand(-1, self.moves_per_step, -1))
+        return {"moved": moved, "info": info, "rows": rows, "active": None,
+                "gate": None, "exact": None}
+
+    def choose(self, state, p):
+        choose_best(p, "moved")
+
+    def commit(self, state, p, accept):
+        keep = accept[:, None, None]
+        state["population"] = torch.where(keep, p["moved"][:, None],
+                                          state["population"])
+        state["scores"] = torch.where(keep, p["cand"][:, None],
+                                      state["scores"])
+        return p["cand"]
 
 
-class SweepStep:
-    """The parts every sweep kernel's step shares: the sweep winner of each
-    island (the model's sweep module's `propose`: `models/vrp/sweep.py`,
-    `models/tsp/sweep.py`), its exact score row, and the
-    bookkeeping after the accept rule — the winner's tabu push, the sweep
-    counters, the island best and the step count, each frozen where
-    `_active` is False (the sweep kernels are self-gating)."""
+class CtxStep(_Form):
+    """What the forms that carry a delta ctx per island share: the initial
+    state, the per-chunk ctx rebuild after migration, the per-step tabu
+    free lists, the score row of an exact integer delta row and the
+    winner-commit tail."""
 
-    def __init__(self, agent, requester, cfg, score_precision):
+    def __init__(self, requester, cfg, score_precision, precision_ok):
         self.requester = requester
+        self.vm = requester.variables_manager
         self.cfg = cfg
-        self.mod = requester.sweep_module
-        self.sweep_cfg = self.mod.SweepConfig(requester, agent.sweep_targets,
-                                              agent.sweep_window)
-        self.utils = requester._delta_utils()
+        self.score_fn = make_score_fn(requester, score_precision)
         # accept-boundary rounding (None when unrounded): candidate row =
         # rounded((ctx_ints + exact) / scales)
         self.ints_to_row = (make_rounded_ints_to_row_fn(
             requester, score_precision)
-            if score_precision is not None else None)
+            if score_precision is not None and precision_ok else None)
+
+    def init_state(self, generators):
+        population = torch.stack(
+            [self.vm.sample_variables(g, 1) for g in generators])  # [I, 1, V]
+        n_isl, _, v = population.shape
+        scores = self.score_fn(population.reshape(n_isl, v)).reshape(
+            n_isl, 1, -1)
+        state = base_state(population, scores)
+        state["tabu"] = self.cfg.init_tabu_state(n_isl)
+        state["ctx"] = self.requester.build_base_ctx(population[:, 0])
+        return state
+
+    def refresh(self, state):
+        state = dict(state)
+        state["ctx"] = self.requester.build_base_ctx(
+            state["population"][:, 0])
+        return state
+
+    def tabu_free(self, state):
+        return {"_free": self.cfg.tabu_free(state["tabu"])}
+
+    def int_row(self, state, exact, unrounded=None):
+        """f64[I, S]: the score row of the base plus the exact integer delta
+        row `exact` — rounded from the ctx's integer totals under
+        score_precision; unrounded, `unrounded(ctx, exact)`, or None where
+        the agent needs no row (its rule reads the sign of `exact`)."""
+        if self.ints_to_row is None:
+            return None if unrounded is None else unrounded(state["ctx"],
+                                                            exact)
+        return self.ints_to_row(self.requester.ctx_int_totals(state["ctx"])
+                                + exact.to(torch.int64))
+
+    def commit(self, state, p, accept):
+        """Apply each island's winning delta p["winner"] (leaves [I, K])
+        where `accept` holds, to the chromosome and the ctx, and store its
+        row there: p["cand"], or the updated ctx's row where the step made
+        none. Returns that row."""
+        winner = {**p["winner"], "valid": p["winner"]["valid"]
+                  & accept[:, None]}
+        with span("gj.agent.apply"):
+            state["population"] = moves.apply_delta(
+                state["population"][:, 0], winner)[:, None]
+        state["ctx"] = self.requester.update_ctx(state["ctx"], winner)
+        new_score = (p["cand"] if p["cand"] is not None
+                     else self.requester.ctx_score_row(state["ctx"]))
+        state["scores"] = torch.where(accept[:, None, None],
+                                      new_score[:, None, :], state["scores"])
+        return new_score
+
+
+class DeltaStep(CtxStep):
+    """The delta form: moves off the island's solution scored as rows
+    against its ctx. TabuSearch's (`ranks_neighbourhood`) ranks
+    `neighbours_count` of them on exact i32 rows where the model and the
+    fused kernel serve this width, else on f64 rows, and gates itself; the
+    other agents score one move as an f64 row and the runner masks them."""
+    path = "delta"
+
+    def __init__(self, agent, requester, cfg, score_precision,
+                 precision_ok):
+        super().__init__(requester, cfg, score_precision, precision_ok)
+        ranks = agent.ranks_neighbourhood
+        ints_ok = ranks and precision_ok
+        self.moves_per_step = agent.neighbours
+        self.self_gating = ranks
+        # the free lists feed the narrow sampler only
+        self.prestep = self.tabu_free if ranks and cfg.narrow else None
+        self.ints = ints_ok and requester.delta_ints_eligible(
+            cfg.delta_width)
+        # the label is the JAX package's (`tabu_search.py:181-191`):
+        # "int-delta" whenever the model registers the integer rows and
+        # precision allows, even where the i32 route turns this width or
+        # instance down (kd 16, i64 bounds) and the step scores f64 rows
+        self.label = ("int-delta" if ints_ok
+                      and requester.registers_delta_ints else "delta")
+        self.delta_score_fn = make_delta_score_fn(requester, score_precision)
+
+    def draw(self, generators, state, extras):
+        deltas, info = moves.move_population_delta(
+            generators, state["population"][:, 0], self.moves_per_step,
+            self.vm, self.cfg, state["tabu"], extras.get("_free"))
+        if self.ints:
+            rows = self.requester.request_score_delta_ints(state["ctx"],
+                                                           deltas)
+        else:
+            rows = self.delta_score_fn(state["ctx"], deltas)    # [I, P, S]
+        active = active_of(extras, state) if self.self_gating else None
+        return {"winner": deltas, "info": info, "rows": rows,
+                "active": active, "gate": active, "exact": None}
+
+    def choose(self, state, p):
+        choose_best(p, "winner")
+        if self.ints:
+            # rank and accept on exact i32 deltas; the f64 row comes from
+            # the ctx's sums
+            p["exact"] = p["cand"]
+            p["cand"] = self.int_row(state, p["exact"])
+
+
+class SweepStep(CtxStep):
+    """The sweep form: each island's winner over the model's dense value
+    sweeps (`propose` of `models/vrp/sweep.py`, `models/tsp/sweep.py`) with
+    its exact integer delta row; self-gating, and counting the scored and
+    non-converged candidates."""
+    path = label = "sweep"
+    self_gating = True
+
+    def __init__(self, agent, requester, cfg, score_precision,
+                 precision_ok):
+        super().__init__(requester, cfg, score_precision, precision_ok)
+        self.mod = requester.sweep_module
+        self.sweep_cfg = self.mod.SweepConfig(requester, agent.sweep_targets,
+                                              agent.sweep_window)
+        self.utils = requester._delta_utils()
+        self.prestep = self.tabu_free
+        # unrounded, TabuSearch accepts on the sign of the exact row and
+        # stores the updated ctx's row; the other rules compare the row
+        self.unrounded = (None if agent.ranks_neighbourhood
+                          else self.exact_row)
         self.moves_per_step = self.sweep_cfg.conservative_moves_per_step(
             self.utils, agent.tabu_entity_rate)
 
-    def init_counters(self, state):
+    def exact_row(self, ctx, exact):
+        return self.mod.exact_score_row(ctx, exact, self.utils)
+
+    def init_state(self, generators):
+        state = super().init_state(generators)
         zeros = torch.zeros(state["step_id"].shape, dtype=torch.int64,
                             device=state["step_id"].device)
         state["sweep_scored"] = zeros
@@ -358,16 +493,13 @@ class SweepStep:
         state["sweep_nonconv"] = zeros
         return state
 
-    def propose(self, generators, state, extras):
-        """dict of `active` bool[I], `ok` (active and a winner exists),
-        the winner `delta` (leaves [I, K]), its `exact` integer [I, S]
+    def draw(self, generators, state, extras):
+        """The `active` islands, the `gate` (active and a winner exists),
+        the `winner` delta (leaves [I, K]), its `exact` integer [I, S]
         delta row (`STUB_INT` where there is no winner), the tabu `info`
         and the `stats` counters."""
         with span("gj.agent.propose"):
-            active = extras.get("_active")
-            if active is None:
-                active = torch.ones(state["step_id"].shape, dtype=torch.bool,
-                                    device=state["step_id"].device)
+            active = active_of(extras, state)
             free = extras.get("_free")
             if free is None:
                 free = self.cfg.tabu_free(state["tabu"])
@@ -375,32 +507,85 @@ class SweepStep:
                 generators, state["ctx"], free,
                 self.cfg.tabu_masks(state["tabu"]), self.sweep_cfg,
                 self.utils)
-            ok = active & (exact[:, 0] != STUB_INT)
-            return {"active": active, "ok": ok, "delta": delta,
-                    "exact": exact, "info": info, "stats": stats}
+            return {"active": active,
+                    "gate": active & (exact[:, 0] != STUB_INT),
+                    "winner": delta, "exact": exact, "info": info,
+                    "stats": stats, "chosen": None}
 
-    def cand_row(self, state, exact):
-        """f64[I, S]: the score row of the base plus the exact delta."""
-        if self.ints_to_row is None:
-            return self.mod.exact_score_row(state["ctx"], exact, self.utils)
-        return self.ints_to_row(self.requester.ctx_int_totals(state["ctx"])
-                                + exact.to(torch.int64))
+    def choose(self, state, p):
+        p["cand"] = self.int_row(state, p["exact"], self.unrounded)
 
     def finish(self, state, p):
-        with span("gj.agent.accept"):
-            active, info, stats = p["active"], p["info"], p["stats"]
-            if self.cfg.use_tabu:
-                # the reference pushes touched ids during sampling
-                # (`mover.rs:75-96`): push the winner's targets whether or
-                # not accepted, rotating sweep targets out of tabu
-                state["tabu"] = selection.tabu_push(
-                    state["tabu"], info["group"], info["positions"],
-                    torch.where(active, info["count"], 0))
-            state["sweep_scored"] = state["sweep_scored"] + torch.where(
-                active, stats["n_scored"], 0)
-            state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
-                active, stats["n_nonconv"], 0)
-            state = update_top(state)
-            state["step_id"] = state["step_id"] + active.to(
-                state["step_id"].dtype)
-            return state
+        active, stats = p["active"], p["stats"]
+        state["sweep_scored"] = state["sweep_scored"] + torch.where(
+            active, stats["n_scored"], 0)
+        state["sweep_nonconv"] = state["sweep_nonconv"] + torch.where(
+            active, stats["n_nonconv"], 0)
+        # the reference pushes touched ids during sampling
+        # (`mover.rs:75-96`): the winner's targets enter tabu whether or
+        # not accepted, rotating sweep targets out of tabu
+        return super().finish(state, p)
+
+
+_FORMS = {"sweep": SweepStep, "delta": DeltaStep, "plain": PlainMoveStep}
+
+
+class LocalSearch:
+    """The step of the local-search agents: propose, pick each island's
+    candidate, accept by the agent's rule, commit, end the step. The agent
+    gives its rule (`accept`), what it keeps of an outcome (`accepted`)
+    and its own state (`init_rule`); every hook sees the proposal p of the
+    step: its form's `path`, the candidate row `cand` (None where the rule
+    may read the sign of the `exact` integer delta row), `active`
+    (None where the runner masks), `generators` and `extras`."""
+    metaheuristic_kind = "LocalSearch"
+    # TabuSearch's step: a neighbourhood of `neighbours_count` moves ranked
+    # on exact integer rows where the model serves them, accepted on the
+    # exact delta's sign when unrounded, and a self-gating delta form.
+    # The others score one move as an f64 row
+    ranks_neighbourhood = False
+
+    @property
+    def neighbours(self):
+        return 1
+
+    def init_rule(self, state, path):
+        return state
+
+    def accept(self, state, p):
+        """bool[I]: the islands whose candidate the rule accepts, before
+        the form's own gate (active, a winner exists)."""
+        raise NotImplementedError
+
+    def accepted(self, state, p, accept, new_score):
+        """Update the rule's state after the commit."""
+
+    def build_kernel(self, requester, score_precision=None):
+        cfg = moves.MoverConfig(requester.variables_manager,
+                                self.tabu_entity_rate,
+                                self.mutation_rate_multiplier,
+                                self.move_probas)
+        path, precision_ok = scoring_path(self, requester, score_precision)
+        form = _FORMS[path](self, requester, cfg, score_precision,
+                            precision_ok)
+
+        def init_state(generators):
+            return self.init_rule(form.init_state(generators), form.path)
+
+        def step(generators, state, extras):
+            p = form.draw(generators, state, extras)
+            p.update(path=form.path, generators=generators, extras=extras)
+            with span("gj.agent.accept"):
+                state = dict(state)
+                form.choose(state, p)
+                accept = self.accept(state, p)
+                if p["gate"] is not None:
+                    accept = accept & p["gate"]
+                new_score = form.commit(state, p, accept)
+                self.accepted(state, p, accept, new_score)
+                return form.finish(state, p)
+
+        return MetaheuristicKernel(
+            self, init_state, step, form.refresh,
+            self_gating=form.self_gating, prestep=form.prestep,
+            path=form.label, moves_per_step=form.moves_per_step)

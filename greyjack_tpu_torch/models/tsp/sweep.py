@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from greyjack_tpu_torch.ops import lexico
+from greyjack_tpu_torch.ops import lexico, moves
 from greyjack_tpu_torch.utils.math_utils import true_div
 from greyjack_tpu_torch.utils.tracing import span
 
@@ -245,34 +245,17 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
 
 def sample_targets(generators, ctx, free, cfg: SweepConfig):
     """T distinct tabu-free tour rows per island, drawn from the island's
-    generator: one f32 uniform per group slot, +2.0 past the free count,
-    the first T of a stable argsort. Returns (t_rows i32[I, T], t_valid
+    generator (`moves.sample_free_slots`): (t_rows i32[I, T], t_valid
     bool[I, T])."""
-    free_list, free_count = free
-    fc = free_count[:, cfg.g0]                                # [I]
-    lmax = cfg.group_lmax
-    dev = free_list.device
-    slot = torch.arange(lmax, device=dev)
-    u = torch.stack([torch.rand(lmax, generator=g, dtype=torch.float32,
-                                device=dev) for g in generators])
-    keys = u + torch.where(slot < fc[:, None], 0.0, 2.0)
-    order = torch.argsort(keys, dim=-1, stable=True)[:, :cfg.targets]
-    t_valid = torch.arange(cfg.targets, device=dev) < fc[:, None]
-    t_slots = torch.gather(free_list[:, cfg.g0], 1, order)
+    t_slots, t_valid = moves.sample_free_slots(generators, free, cfg.g0,
+                                               cfg.group_lmax, cfg.targets)
     return cfg.row_of_slot[t_slots.long()], t_valid
 
 
 def tabu_rows(tabu_masks, cfg: SweepConfig, n_islands):
-    """bool[I, N]: tour rows whose slot is tabu. An OR over slots: the
-    member table's pad slots alias row 0 with False and must not erase a
-    real True, so slot hits are counted, not written."""
-    n = cfg.n_rows
-    dev = cfg.row_of_slot.device
-    if tabu_masks is None:
-        return torch.zeros((n_islands, n), dtype=torch.bool, device=dev)
-    hits = (tabu_masks[:, cfg.g0] & cfg.slot_valid).to(_I32)
-    return torch.zeros((n_islands, n), dtype=_I32, device=dev).index_add_(
-        1, cfg.row_of_slot.long(), hits) > 0
+    """bool[I, N]: tour rows whose slot is tabu."""
+    return moves.tabu_slot_rows(tabu_masks, cfg.g0, cfg.slot_valid,
+                                cfg.row_of_slot, cfg.n_rows, n_islands)
 
 
 def propose_from_targets(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,

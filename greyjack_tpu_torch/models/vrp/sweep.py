@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from greyjack_tpu_torch.models.vrp import cotwin_builder as cb
-from greyjack_tpu_torch.ops import lexico
+from greyjack_tpu_torch.ops import lexico, moves
 from greyjack_tpu_torch.utils.math_utils import true_div
 from greyjack_tpu_torch.utils.tracing import span
 
@@ -666,33 +666,18 @@ def score_candidates(ctx, t_rows, t_valid, row_tabu, cfg: SweepConfig,
 
 def sample_targets(generators, ctx, free, cfg: SweepConfig):
     """T distinct tabu-free customer-group rows per island, drawn from the
-    island's generator: (t_rows i32[I, T], t_valid bool[I, T])."""
-    free_list, free_count = free
-    fc = free_count[:, cfg.g_cust]                            # [I]
-    lmax = cfg.cust_group_lmax
-    dev = free_list.device
-    slot = torch.arange(lmax, device=dev)
-    u = torch.stack([torch.rand(lmax, generator=g, dtype=torch.float32,
-                                device=dev) for g in generators])
-    keys = u + torch.where(slot < fc[:, None], 0.0, 2.0)
-    order = torch.argsort(keys, dim=-1, stable=True)[:, :cfg.targets]
-    t_valid = ((torch.arange(cfg.targets, device=dev) < fc[:, None])
-               & ~ctx["base_over"][:, None])
-    t_slots = torch.gather(free_list[:, cfg.g_cust], 1, order)
+    island's generator (`moves.sample_free_slots`), none where the base is
+    over capacity: (t_rows i32[I, T], t_valid bool[I, T])."""
+    t_slots, t_valid = moves.sample_free_slots(
+        generators, free, cfg.g_cust, cfg.cust_group_lmax, cfg.targets)
+    t_valid = t_valid & ~ctx["base_over"][:, None]
     return cfg.row_of_cust_slot[t_slots.long()], t_valid
 
 
 def tabu_rows(tabu_masks, cfg: SweepConfig, n_islands):
-    """bool[I, N]: stop rows whose customer slot is tabu. An OR over slots:
-    the member table's pad slots alias row 0 with False and must not erase
-    a real True, so slot hits are counted, not written."""
-    n = cfg.n_rows
-    dev = cfg.row_of_cust_slot.device
-    if tabu_masks is None:
-        return torch.zeros((n_islands, n), dtype=torch.bool, device=dev)
-    hits = (tabu_masks[:, cfg.g_cust] & cfg.cust_slot_valid).to(_I32)
-    return torch.zeros((n_islands, n), dtype=_I32, device=dev).index_add_(
-        1, cfg.row_of_cust_slot.long(), hits) > 0
+    """bool[I, N]: stop rows whose customer slot is tabu."""
+    return moves.tabu_slot_rows(tabu_masks, cfg.g_cust, cfg.cust_slot_valid,
+                                cfg.row_of_cust_slot, cfg.n_rows, n_islands)
 
 
 def _select_winner(sc, cfg: SweepConfig, utils):

@@ -179,11 +179,51 @@ def binomial_counts(u32, rate):
                      dtype=torch.int32)
 
 
+def island_draws(generators, draw, *args, **kwargs):
+    """[I, ...]: `draw(*args, **kwargs)` — `torch.rand` or `torch.randint`
+    of one shape — once per island from its own generator, stacked."""
+    return torch.stack([draw(*args, generator=g, **kwargs)
+                        for g in generators])
+
+
 def island_uniforms(generators, shape, device):
     """f64[I, *shape] uniforms of [0, 1): one `torch.rand` per island, from
     its own generator — the one place the generic samplers draw."""
-    return torch.stack([torch.rand(shape, generator=g, dtype=torch.float64,
-                                   device=device) for g in generators])
+    return island_draws(generators, torch.rand, shape, dtype=torch.float64,
+                        device=device)
+
+
+def sample_free_slots(generators, free, group, lmax, count):
+    """(slots i32[I, T], valid bool[I, T]): T = `count` distinct tabu-free
+    slots of `group` per island (the sweep modules' targets), drawn from
+    the island's generator: one f32 uniform per group slot, +2.0 past the
+    free count, the first T of a stable argsort. `free` is the
+    `MoverConfig.tabu_free` pair; slots past the free count are invalid."""
+    free_list, free_count = free
+    fc = free_count[:, group]                                 # [I]
+    dev = free_list.device
+    slot = torch.arange(lmax, device=dev)
+    u = island_draws(generators, torch.rand, lmax, dtype=torch.float32,
+                     device=dev)
+    keys = u + torch.where(slot < fc[:, None], 0.0, 2.0)
+    order = torch.argsort(keys, dim=-1, stable=True)[:, :count]
+    valid = torch.arange(count, device=dev) < fc[:, None]
+    return torch.gather(free_list[:, group], 1, order), valid
+
+
+def tabu_slot_rows(tabu_masks, group, slot_valid, row_of_slot, n_rows,
+                   n_islands):
+    """bool[I, n_rows]: the rows (`row_of_slot` of each slot of `group`)
+    whose slot is tabu. An OR over slots: the member table's pad slots
+    alias row 0 with False and must not erase a real True, so slot hits
+    are counted, not written."""
+    dev = row_of_slot.device
+    if tabu_masks is None:
+        return torch.zeros((n_islands, n_rows), dtype=torch.bool, device=dev)
+    hits = (tabu_masks[:, group] & slot_valid).to(torch.int32)
+    return torch.zeros((n_islands, n_rows), dtype=torch.int32,
+                       device=dev).index_add_(1, row_of_slot.long(),
+                                              hits) > 0
 
 
 def field_columns(fields):
@@ -634,14 +674,13 @@ def _move_population_delta_narrow(generators, base, n, vm, cfg, free):
     n_isl = base.shape[0]
     dev = base.device
     n_groups = max(1, cfg.n_groups)
-    u, uv, g = [], [], []
-    for gen in generators:
-        u.append(torch.rand((n, 3), generator=gen, dtype=torch.float32,
-                            device=dev))
-        uv.append(torch.rand((n, kd), generator=gen, dtype=base.dtype,
-                             device=dev))
-        g.append(torch.randint(0, n_groups, (n,), generator=gen, device=dev))
-    u, uv, g = torch.stack(u), torch.stack(uv), torch.stack(g)
+    # each generator still draws u, then uv, then g
+    u = island_draws(generators, torch.rand, (n, 3), dtype=torch.float32,
+                     device=dev)
+    uv = island_draws(generators, torch.rand, (n, kd), dtype=base.dtype,
+                      device=dev)
+    g = island_draws(generators, torch.randint, 0, n_groups, (n,),
+                     device=dev)
     fc = torch.gather(free_count, 1, g)                       # [I, n]
 
     if len(cfg.enabled) == 1:

@@ -32,7 +32,7 @@ read by the trace's idle breakdown alone.
     gj.moves.sample                                  sample_host_ms
     gj.moves.kernel      the plain sampler's CUDA kernel launch
                          (`ops/move_kernel.py`)      sample_kernel_share
-  agent step (`agents/tabu_search.py`, `agents/base.py`)
+  agent step (`agents/base.py`, the local-search step `LocalSearch`)
     gj.agent.propose     the sweep step's proposal: tabu masks, the
                          model's `propose`, the active-winner mask
     gj.agent.accept      winner, acceptance, apply, tabu push, best, step
