@@ -60,7 +60,15 @@ Phases, each fatal on failure:
      device only (a CUDA graph of `move_and_fix`), with the wrapper, the
      torch body's and the draw's, beside its byte bound from the run's
      inputs;
- 10. the plain path through `Solver.solve` on the flagship: GA (8 islands
+ 10. the plain score's route-analysis kernel (`csrc/vrp_plain.cu`) against
+     the torch body of `build_common` on the same card tensors, at the
+     plain cell's shape (16,384 rows of the flagship: TS-plain's 8 x 2048
+     one-move candidates of perturbed greedy bases, and random rows):
+     `build_common`'s four outputs and the plain score rows bit-equal;
+     and its time: device only (a CUDA graph of `route_analysis`), with
+     the wrapper, the torch body's, `request_score_plain` both ways,
+     beside its byte bound (the id columns and the outputs); then
+     the plain path through `Solver.solve` on the flagship: GA (8 islands
      x 128, 200 steps) and GA-wide (64 x 128, 50 steps) with the delta
      cotwin (GA always rescores), TS-plain (8 x 2048, six equal moves, 50
      steps), LA-plain / SA-plain (512 x 1, change / swap, 100 steps)
@@ -70,7 +78,9 @@ Phases, each fatal on failure:
      with no kernel launch. Each must report its path, and its score must
      equal a plain rescore, bit for bit; TS-, LA- and SA-plain must launch
      the sampler kernel, GA, GA-wide and the six-move delta solve must
-     not (nor LSHADE in phase 11);
+     not (nor LSHADE in phase 11); the plain score's kernel must launch
+     once for the initial scores and, but in the six-move delta solve,
+     once a step (LSHADE in phase 11 too);
  11. LSHADE on the flagship in `scripts/bench_mh.py`'s configuration
      (population 128, archive 128, one forced column, change / swap):
      first one body step on the card vs on the CPU from the same state and
@@ -216,6 +226,9 @@ KERNEL_REPLACES = "greyjack_tpu/models/vrp/delta_pallas.py:125"
 SAMPLER_SOURCE = "greyjack_tpu_torch/csrc/move_sample.cu"
 # no TPU kernel: the JAX package's sampler and fix are XLA ops
 SAMPLER_REPLACES = "greyjack_tpu/ops/moves.py:668 (XLA ops)"
+PLAIN_SOURCE = "greyjack_tpu_torch/csrc/vrp_plain.cu"
+# no TPU kernel: the JAX package's route analysis is XLA ops
+PLAIN_REPLACES = "greyjack_tpu/models/vrp/cotwin_builder.py:80 (XLA ops)"
 # the plain solves that step through `PlainMoveStep`, so through the
 # sampler kernel; GA and LSHADE move their children with the torch body
 KERNEL_PLAIN = ("TS-plain", "LA-plain", "SA-plain")
@@ -859,6 +872,126 @@ def sampler_phase(card, seed=19):
             "draw_ms": d_ms, "bound_ms": b_ms, "bound_by": "bytes",
             "bytes_read": n_read, "bytes_written": n_written}
 
+def plain_bound(rows, n, k):
+    """(bytes read, bytes written, bound_ms) of one route-analysis kernel
+    call over `rows` rows of `n` stops and `k` vehicles, over the H100's
+    3.35 TB/s: the two i32 id columns read once, the distance, penalty,
+    duplicate count and loads written once. The tables (the milli matrix,
+    4 MB at the flagship, and the customer rows) stay in L2 and are left
+    out; so is every lookup into them."""
+    n_read = 2 * rows * n * 4
+    n_written = rows * (8 + 8 + 4 + 4 * k)
+    return n_read, n_written, (n_read + n_written) / 3.35e12 * 1e3
+
+
+def plain_score_phase(card, seed=29):
+    """Phase 10, first part: the plain score's route-analysis kernel
+    (`csrc/vrp_plain.cu`) against the torch body of `build_common`, on the
+    same card tensors, at the plain cell's shape (16,384 rows of the
+    flagship: 1000 stops, 40 vehicles, 1008 locations): TS-plain's
+    candidates (8 islands x 2048 one-move neighbours of perturbed greedy
+    bases, fixed) and random rows of the cotwin without a greedy start.
+    `build_common`'s four outputs and `request_score_plain`'s rows must be
+    bit-equal with the kernel and with the torch body forced. Then the
+    kernel's times on the candidates beside its byte bound; returns them
+    for the kernel table."""
+    import torch
+    from greyjack_tpu_torch.models.vrp import CotwinBuilder, cotwin_builder
+    from greyjack_tpu_torch.ops import moves, plain_kernel
+    from greyjack_tpu_torch.score_calculation.score_requesters import (
+        ScoreRequester)
+    from greyjack_tpu_torch.solver.solver import island_generators
+
+    n_isl, p = N_ISLANDS, PLAIN_NEIGHBOURS
+    real_eligible = plain_kernel.eligible
+
+    def torch_body(fn):
+        plain_kernel.eligible = lambda v, utils: False
+        try:
+            return fn()
+        finally:
+            plain_kernel.eligible = real_eligible
+
+    req = ScoreRequester(CotwinBuilder(False, True).build_cotwin(
+        flagship_domain(), False))
+    vm = req.variables_manager
+    cfg = moves.MoverConfig(vm, TABU_RATE, None, None)
+    gens = island_generators(seed, n_isl, DEVICE)
+    base = perturbed_bases(req, n_isl, seed).to(DEVICE, vm.float_dtype)
+    moved, _ = moves.do_move(
+        base[:, None].expand(n_isl, p, vm.variables_count),
+        moves.draw_move_noise(gens, p, vm, cfg, base.dtype), vm, cfg, None)
+    candidates = vm.fix_all(moved).reshape(n_isl * p, -1)
+    rand_req = ScoreRequester(CotwinBuilder(False, False).build_cotwin(
+        flagship_domain(), False))
+    random_rows = rand_req.variables_manager.sample_variables(gens[0],
+                                                              n_isl * p)
+    timed = None
+    for label, r, pop in (("TS-plain candidates", req, candidates),
+                          ("random rows", rand_req, random_rows)):
+        utils = dict(r.cotwin.score_calculator.utility_objects)
+        frames = r.build_frames(pop)
+        cols = frames["planning_stops"]
+        v = cols["vehicle_id"].contiguous()
+        c = cols["customer_id"].contiguous()
+        if not plain_kernel.eligible(v, utils):
+            fail(f"plain kernel: {label} are not eligible")
+        launches = plain_kernel.route_analysis.launches
+        got = cotwin_builder.build_common(frames, None, utils)
+        if plain_kernel.route_analysis.launches != launches + 1:
+            fail(f"plain kernel: build_common did not launch it on {label}")
+        want = torch_body(
+            lambda: cotwin_builder.build_common(frames, None, utils))
+        for key, w in want.items():
+            g = got[key]
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                    g.view(torch.uint8), w.view(torch.uint8)):
+                fail(f"plain kernel: {label} {key} differs from the torch "
+                     "body")
+        rows_k = r.request_score_plain(pop)
+        rows_t = torch_body(lambda: r.request_score_plain(pop))
+        if not torch.equal(rows_k.view(torch.uint8), rows_t.view(torch.uint8)):
+            fail(f"plain kernel: {label} score rows differ from the torch "
+                 "body's")
+        late = int((got["route_lateness"] > 0).sum())
+        print(f"plain kernel parity, {label}: {v.shape[0]} rows x "
+              f"{v.shape[1]} stops, {utils['k_vehicles']} vehicles, "
+              f"{utils['n_locations']} locations: build_common's four "
+              f"outputs and the score rows bit-equal to the torch body on "
+              f"the card; {late} rows late", flush=True)
+        if timed is None:
+            timed = (r, pop, frames, v, c, utils)
+
+    r, pop, frames, v, c, utils = timed
+    rows, n = v.shape
+    k = utils["k_vehicles"]
+    dev_ms, dev_all = graph_ms(
+        lambda: plain_kernel.route_analysis(v, c, utils))
+    w_ms, w_all = cuda_ms(lambda: plain_kernel.route_analysis(v, c, utils))
+    p_ms, p_all = torch_body(lambda: cuda_ms(
+        lambda: cotwin_builder.build_common(frames, None, utils), inner=3))
+    bc_ms, _ = cuda_ms(lambda: cotwin_builder.build_common(frames, None,
+                                                           utils))
+    sk_ms, _ = cuda_ms(lambda: r.request_score_plain(pop), inner=3)
+    st_ms, _ = torch_body(lambda: cuda_ms(
+        lambda: r.request_score_plain(pop), inner=3))
+    n_read, n_written, b_ms = plain_bound(rows, n, k)
+    print(f"plain kernel time [{card}] at {rows} rows x {n} stops: device "
+          f"only (CUDA graph of route_analysis) {dev_ms:.5f} ms (runs "
+          f"{[round(t, 5) for t in dev_all]}); with the wrapper (event-timed)"
+          f" {w_ms:.4f} ms (runs {[round(t, 4) for t in w_all]}); torch body "
+          f"of build_common {p_ms:.4f} ms (runs {[round(t, 4) for t in p_all]}"
+          f"), build_common with the kernel {bc_ms:.4f} ms; "
+          f"request_score_plain {sk_ms:.4f} ms, with the torch body "
+          f"{st_ms:.4f} ms; bound {b_ms:.5f} ms by bytes ({n_read} B read, "
+          f"{n_written} B written), {100 * b_ms / dev_ms:.1f}% of it",
+          flush=True)
+    return {"rows": rows, "stops": n, "vehicles": k, "device_ms": dev_ms,
+            "wrapper_ms": w_ms, "plain_ms": p_ms, "build_common_ms": bc_ms,
+            "score_ms": sk_ms, "score_plain_ms": st_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "bytes_read": n_read,
+            "bytes_written": n_written}
+
 
 def plain_agent(label, steps):
     """The agents of phase 10, stopping after `steps` steps: GA / GA-wide
@@ -899,18 +1032,20 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     for bit, and the six-move delta solve must not launch the delta kernel
     (kd 16 scores through the f64 `score_delta`; its label is the JAX
     package's, which names the registered int rows). The solves of
-    KERNEL_PLAIN must launch the sampler kernel, the others must not;
-    returns its launches."""
+    KERNEL_PLAIN must launch the sampler kernel, the others must not. The
+    plain score's kernel must launch once for the initial scores and, on
+    the plain path, once a step; returns the launches of both kernels."""
     import torch
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
-    from greyjack_tpu_torch.ops import move_kernel
+    from greyjack_tpu_torch.ops import move_kernel, plain_kernel
     from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
                                            SolverMetrics)
 
     metrics = SolverMetrics()
     dk._call_kernel.launches = 0
     move_kernel.move_and_fix.launches = 0
+    plain_kernel.route_analysis.launches = 0
     t0 = time.perf_counter()
     sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
                        CotwinBuilder(delta_cotwin, True),
@@ -933,6 +1068,10 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     if (sampled > 0) != (label in KERNEL_PLAIN):
         fail(f"{label}: the solve launched the sampler kernel {sampled} "
              "times")
+    scored = plain_kernel.route_analysis.launches
+    if scored != (steps_run + 1 if path == "plain" else 1):
+        fail(f"{label}: the solve launched the plain score's kernel {scored} "
+             f"times in {steps_run} steps")
     score, start = check_solution(sol, label)
     summ = metrics.summary()
     steady = recs[1:]
@@ -941,12 +1080,13 @@ def plain_solve(card, label, n_isl, steps, delta_cotwin, path):
     per_step = recs[0]["moves"] // (n_isl * recs[0]["steps"])
     print(f"{label} solve: {steps_run} steps x {n_isl} islands x {per_step} "
           f"moves in {solve_s:.3f} s, path {path}, delta kernel launches "
-          f"{launches}, sampler kernel launches {sampled}; greedy start "
-          f"{start} -> best {score} (= plain rescore)", flush=True)
+          f"{launches}, sampler kernel launches {sampled}, plain score "
+          f"kernel launches {scored}; greedy start {start} -> best {score} "
+          f"(= plain rescore)", flush=True)
     print(f"{label} solve rate [{card}]: {summ['moves_per_s']:.1f} scored "
           f"moves/s over all chunks, {steady_mps:.1f} excluding the first "
           f"chunk; chunk ms {[r['wall_ms'] for r in recs]}", flush=True)
-    return sampled
+    return sampled, scored
 
 
 def to_device(tree, dev):
@@ -1081,17 +1221,20 @@ def lshade_body_parity(n_isl=N_ISLANDS, seed=17):
 
 def lshade_solve(card, label, n_isl, steps):
     """Phase 11b: an LSHADE flagship solve through `Solver.solve`; it must
-    launch neither kernel."""
+    launch neither the delta nor the sampler kernel, and the plain score's
+    kernel once for the initial scores and once a step; returns those
+    launches."""
     import torch
     from greyjack_tpu_torch.models.vrp import CotwinBuilder, DomainBuilder
     from greyjack_tpu_torch.models.vrp import delta_kernel as dk
-    from greyjack_tpu_torch.ops import move_kernel
+    from greyjack_tpu_torch.ops import move_kernel, plain_kernel
     from greyjack_tpu_torch.solver import (Solver, SolverLoggingLevels,
                                            SolverMetrics)
 
     metrics = SolverMetrics()
     dk._call_kernel.launches = 0
     move_kernel.move_and_fix.launches = 0
+    plain_kernel.route_analysis.launches = 0
     t0 = time.perf_counter()
     with RunnerWatch("arc_count") as watch:
         sol = Solver.solve(DomainBuilder.from_generator(flagship_domain),
@@ -1113,14 +1256,20 @@ def lshade_solve(card, label, n_isl, steps):
         fail(f"{label}: the solve launched the delta kernel {launches} times")
     if move_kernel.move_and_fix.launches != 0:
         fail(f"{label}: the solve launched the sampler kernel")
+    scored = plain_kernel.route_analysis.launches
+    if scored != steps_run + 1:
+        fail(f"{label}: the solve launched the plain score's kernel {scored} "
+             f"times in {steps_run} steps")
     if len(watch.seen) != len(recs) or max(watch.seen) > LSHADE_POP:
         fail(f"{label}: archive counts {watch.seen} (h = {LSHADE_POP})")
     score, start = check_solution(sol, label)
     print(f"{label} solve: {steps_run} steps x {n_isl} islands x "
           f"{LSHADE_POP} moves in {solve_s:.3f} s, path plain, delta kernel "
-          f"launches 0, largest archive count per chunk {watch.seen}; greedy "
-          f"start {start} -> best {score} (= plain rescore)", flush=True)
+          f"launches 0, plain score kernel launches {scored}, largest "
+          f"archive count per chunk {watch.seen}; greedy start {start} -> "
+          f"best {score} (= plain rescore)", flush=True)
     rate_line(label, card, recs, n_isl)
+    return scored
 
 
 def mixed_builders():
@@ -2506,15 +2655,18 @@ def main(argv):
     # --- 7. the plain (full-rescore) path -------------------------------------
     move_parity()
     sampler = sampler_phase(card)
-    sampler_launches = 0
+    plain_score = plain_score_phase(card)
+    sampler_launches = plain_launches = 0
     for label, n_isl, steps, delta_cotwin, path in PLAIN_SOLVES:
-        sampler_launches += plain_solve(card, label, n_isl, steps,
-                                        delta_cotwin, path)
+        sampled, scored = plain_solve(card, label, n_isl, steps,
+                                      delta_cotwin, path)
+        sampler_launches += sampled
+        plain_launches += scored
 
     # --- 8. LSHADE on the flagship (docstring phase 11) -----------------------
     lshade_body_parity()
-    lshade_solve(card, "LSHADE", N_ISLANDS, SOLVE_STEPS)
-    lshade_solve(card, "LSHADE-wide", 64, 50)
+    plain_launches += lshade_solve(card, "LSHADE", N_ISLANDS, SOLVE_STEPS)
+    plain_launches += lshade_solve(card, "LSHADE-wide", 64, 50)
 
     # --- 9. the mixed-int model (phase 12) ------------------------------------
     for label in ("mixedint-GA", "mixedint-LSHADE", "mixedint-TS-random"):
@@ -2579,7 +2731,14 @@ def main(argv):
         "max_abs_err": 0, "ms": sampler["device_ms"],
         "plain_ms": sampler["plain_ms"], "bound_ms": sampler["bound_ms"],
         "bound_by": sampler["bound_by"], "library_ms": None,
-        "shapes": [sampler]}]}), flush=True)
+        "shapes": [sampler]}, {
+        "name": "vrp_plain", "route": "cuda", "source": PLAIN_SOURCE,
+        "replaces": PLAIN_REPLACES, "launches": plain_launches,
+        "max_abs_err": 0, "ms": plain_score["device_ms"],
+        "plain_ms": plain_score["plain_ms"],
+        "bound_ms": plain_score["bound_ms"],
+        "bound_by": plain_score["bound_by"], "library_ms": None,
+        "shapes": [plain_score]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

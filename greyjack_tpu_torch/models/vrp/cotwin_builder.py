@@ -29,8 +29,10 @@ from greyjack_tpu_torch.score_calculation.score_calculators import (
     PlainScoreCalculator,
     IncrementalScoreCalculator,
 )
-from greyjack_tpu_torch.ops import segments, routes, join, moves, lexico
+from greyjack_tpu_torch.ops import (segments, routes, join, moves, lexico,
+                                    plain_kernel)
 from greyjack_tpu_torch.utils.math_utils import true_div
+from greyjack_tpu_torch.utils.tracing import span
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -101,10 +103,22 @@ def build_common(planning, facts, utils):
     walk + duplicate count + loads. The fast walk sums exact integer-milli
     distances; `exact_fp_scores=True` switches to the walk that folds the
     f64 distances in the reference's sequential order
-    (`routes.vrp_routes`), bit-equal to the JAX package's exact branch."""
+    (`routes.vrp_routes`), bit-equal to the JAX package's exact branch.
+    Where `plain_kernel.eligible` holds (a CUDA population on the fast
+    walk), one kernel gives the fast walk's integers."""
     stops = planning["planning_stops"]
     v = stops["vehicle_id"]
     c = stops["customer_id"]
+    if plain_kernel.eligible(v, utils):
+        with span("gj.score.kernel"):
+            milli, penalty, dups, loads = plain_kernel.route_analysis(
+                v.contiguous(), c.contiguous(), utils)
+        return {
+            "route_distance": true_div(milli.to(torch.float64), 1000.0),
+            "route_lateness": penalty.to(torch.float64),
+            "dup_count": dups.to(torch.float64),
+            "vehicle_loads": loads,
+        }
     sorted_v, perm = routes.sort_stops_by_vehicle(v)
     sorted_c = join.apply_permutation(c, perm)
     cust_rows = utils["cust_packed"][sorted_c.long()]

@@ -58,6 +58,9 @@ read by the trace's idle breakdown alone.
     gj.ctx.build         `build_base_ctx`
   plain score (`ScoreRequester.request_score_plain`)
     gj.score.plain                                   plain_rescore_device_ms
+    gj.score.kernel      the VRP route analysis kernel's launch
+                         (`ops/plain_kernel.py`, in `build_common`)
+                                                     plain_kernel_share
 """
 
 from __future__ import annotations
